@@ -88,7 +88,7 @@ def _launch(x, gammas, betas, eps):
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
             "spade_modulation has no CUDA backward yet: it comes with the "
-            "SPADE training slice (ROADMAP.md, slice 2); run inference "
+            "SPADE training slice (ROADMAP.md); run inference "
             "under torch.no_grad() or torch.inference_mode()")
     if len(gammas) > MAX_PAIRS:
         raise ValueError(f"the spade_modulation kernel takes at most "

@@ -13,12 +13,17 @@ each lane's style noise comes from its own request's seed through a
 ``torch.Generator`` of its own, so a lane's noise does not depend on its
 batch-mates. This replaces the JAX engine's vmap over lanes.
 
+Frame-recurrent families (vid2vid) are served as streams instead:
+``engine.stream(stream_id).step({"label": (1, H, W, C)})`` returns the
+stream's next frame. Each :class:`StreamSession` keeps its own history
+rings on the device, so many streams interleave on one engine.
+
 Weights: ``initialize`` draws fresh seeded weights; the forward runs
 ``torch.func.functional_call`` of the trainer's ``net_G`` on
 ``trainer.inference_params()``, as the JAX engine applies the trainer's
 module to its inference variables. Still to be ported (ROADMAP.md): the
-CUDA-graph executable pool, tracing, SLO budgets and telemetry, stream
-sessions, checkpoint loading.
+CUDA-graph executable pool, tracing, SLO budgets and telemetry,
+checkpoint loading.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 from torch.func import functional_call
 
 from imaginaire_tpu_torch.config import as_attrdict, cfg_get
+from imaginaire_tpu_torch.model_utils.fs_vid2vid import concat_frames
 from imaginaire_tpu_torch.registry import resolve
 from imaginaire_tpu_torch.utils.misc import nchw_to_nhwc, nhwc_to_nchw, numeric_only
 
@@ -189,6 +195,13 @@ class ServingEngine:
                                                                 device=device)
         self.trainer = trainer
         self.device = trainer.device
+        # a frame-recurrent generator conditions each frame on its own
+        # previous outputs and produces one frame size, fixed by its
+        # config: it is served as streams at that size
+        self.frame_recurrent = hasattr(trainer, "_get_data_t")
+        if self.frame_recurrent:
+            self.settings["buckets"] = [
+                BucketCfg(*trainer.net_G.frame_hw, batch_sizes=(1,))]
         self.queue = RequestQueue(self, self.settings["max_queue"],
                                   self.settings["queue_timeout_ms"])
         # the only inference argument the generator reads (the others,
@@ -203,6 +216,7 @@ class ServingEngine:
         self._lane_total = 0
         self._lane_padded = 0
         self._batches = 0
+        self._sessions = {}
 
     # ------------------------------------------------------- lifecycle
 
@@ -238,14 +252,20 @@ class ServingEngine:
         b = self._bucket_for(hw)
         return max(b.batch_sizes) if b else 1
 
-    def label(self, h, w, bs):
-        return f"serve/{self.family}/{h}x{w}/bs{bs}"
+    def label(self, h, w, bs, tag=None):
+        parts = ["serve", self.family] + ([tag] if tag else [])
+        return "/".join(parts + [f"{h}x{w}", f"bs{bs}"])
 
     def warm(self):
         """One forward per configured (bucket, batch size) on a zero
-        batch; returns {label: forward ms}."""
+        batch; returns {label: forward ms}. A frame-recurrent family
+        steps a throwaway stream through ``num_frames_G`` zero frames at
+        each bucket instead (the first-frame, continuation and warp
+        forwards); returns {label: [ms per frame]}."""
         if self._variables is None:
             raise ServingError("initialize() before warm()")
+        if self.frame_recurrent:
+            return self._warm_streams()
         if self._example is None:
             raise ServingError("no example lane registered; initialize() with "
                                "an example batch or call register_example()")
@@ -265,9 +285,28 @@ class ServingEngine:
                     time.perf_counter() - t0) * 1e3
         return report
 
+    def _warm_streams(self):
+        channels = self.trainer.net_G.num_input_channels
+        report = {}
+        for bucket in self.settings["buckets"]:
+            session = StreamSession(self)
+            frame = {"label": np.zeros((1, bucket.height, bucket.width,
+                                        channels), np.float32)}
+            times = report[self.label(*bucket.hw, 1, tag="stream")] = []
+            for _ in range(self.trainer.num_frames_G):
+                t0 = time.perf_counter()
+                session._advance(frame)
+                times.append((time.perf_counter() - t0) * 1e3)
+        return report
+
     # -------------------------------------------------------- serving
 
     def submit(self, request):
+        if self.frame_recurrent:
+            raise ServingError(
+                f"the {self.family} family is frame-recurrent and is served "
+                f"as streams: engine.stream(stream_id).step(frame) (batched "
+                f"serving of frame streams is queued in ROADMAP.md)")
         return self.queue.submit(request)
 
     def pump(self, now=None):
@@ -316,16 +355,21 @@ class ServingEngine:
             host[name] = stacked
         t0 = time.perf_counter()
         images = self._run(host, [r.seed for r in chunk] + [None] * pad)
-        self._exec_ms.setdefault(self.label(hw[0], hw[1], bs),
-                                 deque(maxlen=512)).append(
-            (time.perf_counter() - t0) * 1e3)
+        self._account(self.label(hw[0], hw[1], bs), t0,
+                      [r.t_submit for r in chunk], lanes=bs, padded=pad)
         images = images[:len(chunk)]
-        now = time.perf_counter()
-        self._latencies.extend((now - r.t_submit) * 1e3 for r in chunk)
-        self._lane_total += bs
-        self._lane_padded += pad
-        self._batches += 1
         return {req.id: images[j] for j, req in enumerate(chunk)}
+
+    def _account(self, label, t_exec, submit_times, lanes, padded):
+        """Record one executed batch (or stream frame) that started
+        executing at ``t_exec``."""
+        now = time.perf_counter()
+        self._exec_ms.setdefault(label, deque(maxlen=512)).append(
+            (now - t_exec) * 1e3)
+        self._latencies.extend((now - t) * 1e3 for t in submit_times)
+        self._lane_total += lanes
+        self._lane_padded += padded
+        self._batches += 1
 
     def _lane_noise(self, seeds):
         """(B, style_dims) style noise: one row per lane from that lane's
@@ -343,18 +387,36 @@ class ServingEngine:
                                         device=self.device))
         return torch.cat(rows)
 
-    @torch.inference_mode()
-    def _run(self, host, seeds):
-        """One generator forward on NHWC host arrays; NHWC numpy out."""
+    def _to_device(self, host):
+        """NHWC host arrays -> tensors on the device, rank-4 ones NCHW."""
         data = {}
         for name, arr in host.items():
             t = torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
             data[name] = nhwc_to_nchw(t) if t.dim() == 4 else t
+        return data
+
+    @torch.inference_mode()
+    def _run(self, host, seeds):
+        """One generator forward on NHWC host arrays; NHWC numpy out."""
+        data = self._to_device(host)
         out = functional_call(
             self.trainer.net_G, self._variables, (data,),
             {"random_style": self.random_style,
              "noise": self._lane_noise(seeds)}, strict=True)
         return nchw_to_nhwc(out["fake_images"]).cpu().numpy()
+
+    # -------------------------------------------------------- streams
+
+    def stream(self, stream_id):
+        """Get (or open) the :class:`StreamSession` of ``stream_id``."""
+        session = self._sessions.get(stream_id)
+        if session is None:
+            session = self._sessions[stream_id] = StreamSession(self)
+        return session
+
+    def close_stream(self, stream_id):
+        """Close a stream and free its history rings."""
+        self._sessions.pop(stream_id, None)
 
     # ---------------------------------------------------------- stats
 
@@ -371,6 +433,66 @@ class ServingEngine:
             "queue_depth": self.queue.depth,
             "exec_ms": {label: list(ring) for label, ring in self._exec_ms.items()},
         }
+
+
+class StreamSession:
+    """Per-stream vid2vid conditioning state, kept on the device across
+    frames: the (1, T, C, H, W) rings of the stream's last
+    ``num_frames_G - 1`` labels and generated frames. ``step(frame)``
+    builds the frame's data from THIS stream's rings (no host upload of
+    the history), runs the generator, and rolls the rings forward with
+    the device output. ``reset()`` starts a new shot. The vid2vid
+    generator draws no noise, so a stream has no seed."""
+
+    def __init__(self, engine):
+        if not engine.frame_recurrent:
+            raise ServingError(
+                f"family {engine.family!r} has no frame-recurrent trainer "
+                f"(_get_data_t); streaming sessions need the vid2vid family")
+        self.engine = engine
+        self.history = max(int(engine.trainer.num_frames_G) - 1, 1)
+        self.reset()
+
+    def reset(self):
+        self.prev_labels = None
+        self.prev_images = None
+        self.t = 0
+
+    @torch.inference_mode()
+    def _advance(self, frame):
+        """Generate this stream's next frame from one NHWC host frame
+        (``{"label": (1, H, W, C)}``) and roll the rings; (1, H, W, C)
+        numpy out."""
+        engine = self.engine
+        trainer = engine.trainer
+        if engine._variables is None:
+            raise ServingError("initialize() before streaming")
+        data = trainer._start_of_iteration(
+            engine._to_device(numeric_only(dict(frame))), -1)
+        data_t = trainer._get_data_t(data, 0, self.prev_labels,
+                                     self.prev_images)
+        hw = tuple(data_t["label"].shape[-2:])
+        if engine._bucket_for(hw) is None:
+            raise ServingError(
+                f"frame of {hw[0]}x{hw[1]}: this generator produces "
+                f"{trainer.net_G.frame_hw[0]}x{trainer.net_G.frame_hw[1]} "
+                f"frames")
+        fake = trainer._apply_G(engine._variables, data_t)["fake_images"]
+        # the rings advance with the DEVICE tensors
+        self.prev_labels = concat_frames(self.prev_labels, data_t["label"],
+                                         self.history)
+        self.prev_images = concat_frames(self.prev_images, fake, self.history)
+        self.t += 1
+        return nchw_to_nhwc(fake).cpu().numpy()
+
+    def step(self, frame):
+        """The stream's next frame for ``frame`` = {"label": (1, H, W, C)
+        numpy}; accounted under ``serve/<family>/stream/<H>x<W>/bs1``."""
+        t0 = time.perf_counter()
+        out = self._advance(frame)
+        self.engine._account(self.engine.label(*out.shape[1:3], 1, tag="stream"),
+                             t0, [t0], lanes=1, padded=0)
+        return out
 
 
 def engine_from_config(cfg, trainer=None, device=None):

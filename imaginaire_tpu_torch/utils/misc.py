@@ -7,9 +7,12 @@ defaults where the two differ:
 - ``nearest`` samples at half-pixel centres: torch ``nearest-exact``
   (torch ``nearest`` drops the half pixel and picks other rows when
   shrinking, e.g. 8 pixels apart at 256 -> 16);
-- ``bilinear`` antialiases when it shrinks (``antialias=True``);
+- ``bilinear`` antialiases when it shrinks: the triangle kernel widens
+  by the shrink factor. torch's ``antialias=True`` computes the same,
+  but on CUDA it refuses large factors (the vid2vid label map shrinks
+  128x), so it is computed here as two weight matrices;
 - ``cubic`` is Keys' kernel with a = -0.5, where torch's ``bicubic``
-  uses a = -0.75, so it is computed here as two weight matrices.
+  uses a = -0.75, so it is computed here as two weight matrices too.
 """
 
 from __future__ import annotations
@@ -43,11 +46,8 @@ def upsample_2x(x):
     return resize_nearest(x, (2 * h, 2 * w))
 
 
-def resize_bilinear(x, hw):
-    if tuple(x.shape[-2:]) == tuple(hw):
-        return x
-    return F.interpolate(x, size=tuple(hw), mode="bilinear",
-                         align_corners=False, antialias=True)
+def _triangle(t):
+    return np.maximum(0.0, 1.0 - np.abs(t))
 
 
 def _keys_cubic(t):
@@ -57,15 +57,15 @@ def _keys_cubic(t):
     return np.where(t >= 2.0, 0.0, out)
 
 
-def _cubic_weights(in_size, out_size):
-    """(out, in) weights of ``jax.image.resize(..., 'cubic')`` along one
-    axis (``scale_and_translate`` with antialiasing: the kernel widens by
+def _resize_weights(in_size, out_size, kernel):
+    """(out, in) weights of ``jax.image.resize`` along one axis
+    (``scale_and_translate`` with antialiasing: the kernel widens by
     in/out when shrinking)."""
     inv_scale = in_size / out_size
     kernel_scale = max(inv_scale, 1.0)
     sample = (np.arange(out_size) + 0.5) * inv_scale - 0.5
     dist = np.abs(sample[:, None] - np.arange(in_size)[None, :]) / kernel_scale
-    w = _keys_cubic(dist)
+    w = kernel(dist)
     total = w.sum(axis=1, keepdims=True)
     w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
                  w / np.where(total != 0, total, 1.0), 0.0)
@@ -73,16 +73,25 @@ def _cubic_weights(in_size, out_size):
     return np.where(inside[:, None], w, 0.0)
 
 
-def resize_cubic(x, hw):
-    """Keys-cubic (a = -0.5) resize of an NCHW tensor to ``hw``."""
+def _resize_separable(x, hw, kernel):
     h, w = x.shape[-2:]
     if (h, w) == tuple(hw):
         return x
-    wy = torch.as_tensor(_cubic_weights(h, hw[0]), dtype=x.dtype,
+    wy = torch.as_tensor(_resize_weights(h, hw[0], kernel), dtype=x.dtype,
                          device=x.device)
-    wx = torch.as_tensor(_cubic_weights(w, hw[1]), dtype=x.dtype,
+    wx = torch.as_tensor(_resize_weights(w, hw[1], kernel), dtype=x.dtype,
                          device=x.device)
     return torch.einsum("yh,nchw,xw->ncyx", wy, x, wx)
+
+
+def resize_bilinear(x, hw):
+    """Antialiased bilinear (triangle-kernel) resize of an NCHW tensor."""
+    return _resize_separable(x, hw, _triangle)
+
+
+def resize_cubic(x, hw):
+    """Keys-cubic (a = -0.5) resize of an NCHW tensor to ``hw``."""
+    return _resize_separable(x, hw, _keys_cubic)
 
 
 def nhwc_to_nchw(x):

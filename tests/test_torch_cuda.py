@@ -6,17 +6,20 @@ Imports no JAX, so it also runs where only PyTorch is installed:
 
 (``--noconftest``: the suite's conftest.py sets up JAX.) Each kernel is
 held against its plain PyTorch version, including the paths the serving
-main path does not take (planes larger than the shared-memory cache,
-ragged planes, the most (gamma, beta) pairs), and its wrapper's refusals
-are checked. TF32 is off; fp32 tolerance 1e-4 (reduction order), bf16
-2e-2 of the output's magnitude (the plain version rounds between its
-steps, the kernel once).
+main paths do not take (planes larger than the shared-memory cache,
+ragged planes, the most (gamma, beta) pairs; odd warp sizes, one
+channel, bf16 flows), and its wrapper's refusals are checked. TF32 is
+off. spade_modulation: fp32 tolerance 1e-4 (reduction order), bf16 2e-2
+of the output's magnitude (the plain version rounds between its steps,
+the kernel once). resample2d: fp32 1e-5 (the same fp32 steps), bf16
+1e-2 of the output's magnitude.
 """
 
 import pytest
 import torch
 
 from imaginaire_tpu_torch.layers.activation_norm import SpatiallyAdaptiveNorm
+from imaginaire_tpu_torch.ops import resample2d as rs
 from imaginaire_tpu_torch.ops import spade_modulation as spade_mod
 from imaginaire_tpu_torch.utils.init_weight import init_weights
 
@@ -102,3 +105,61 @@ def test_spade_layer_fused_equals_unfused_on_card(cuda_device):
         unfused = norm(x, seg)
     assert spade_mod.launches == before + 1
     assert (fused - unfused).abs().max().item() <= 1e-4
+
+
+def _warp_inputs(shape, dtype, flow_dtype, device, seed=0):
+    """x and a flow mixing fractional, integer, zero and out-of-frame
+    displacements."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    b, _, h, w = shape
+    x = (torch.randn(shape, generator=gen, device=device) * 2 + 0.5).to(dtype)
+    frac = torch.rand((b, 2, h, w), generator=gen, device=device) * 6 - 3
+    kind = torch.randint(0, 4, (b, 1, h, w), generator=gen, device=device)
+    far = torch.tensor([1.5 * w, -1.5 * h], device=device).view(1, 2, 1, 1)
+    flow = torch.where(kind == 0, frac, torch.where(
+        kind == 1, frac.round(), torch.where(kind == 2, 0 * frac, far + 0 * frac)))
+    return x, flow.to(flow_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,flow_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("shape", [(1, 1, 37, 53), (2, 3, 37, 53),
+                                   (3, 5, 1, 7), (1, 3, 512, 1024)])
+def test_resample2d_kernel_matches_plain(cuda_device, shape, dtype, flow_dtype):
+    x, flow = _warp_inputs(shape, dtype, flow_dtype, cuda_device)
+    before = rs.launches
+    with torch.no_grad():
+        got = rs.resample2d(x, flow)
+    torch.cuda.synchronize()
+    assert rs.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    want = rs.resample2d_plain(x, flow).float()
+    err = (got.float() - want).abs().max().item()
+    if dtype == torch.float32:
+        assert err <= 1e-5, err
+    else:
+        assert err <= 1e-2 * want.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad,error", [
+    ("grad", NotImplementedError), ("strided_x", ValueError),
+    ("strided_flow", ValueError), ("half", TypeError), ("cpu_flow", ValueError)])
+def test_resample2d_wrapper_refuses(cuda_device, bad, error):
+    x, flow = _warp_inputs((1, 3, 8, 8), torch.float32, torch.float32, cuda_device)
+    if bad == "grad":
+        flow.requires_grad_(True)
+    elif bad == "strided_x":
+        x = x.transpose(2, 3)
+    elif bad == "strided_flow":
+        flow = flow.transpose(2, 3)
+    elif bad == "half":
+        x = x.half()
+    else:
+        flow = flow.cpu()
+    before = rs.launches
+    with pytest.raises(error):
+        rs.resample2d(x, flow)
+    assert rs.launches == before

@@ -169,7 +169,8 @@ def test_nonlinearity(kind):
 
 @pytest.mark.parametrize("method,src,dst", [
     ("nearest", 256, 16), ("nearest", 24, 48), ("cubic", 16, 32),
-    ("cubic", 16, 64), ("cubic", 16, 16), ("bilinear", 64, 32)])
+    ("cubic", 16, 64), ("cubic", 16, 16), ("bilinear", 64, 32),
+    ("bilinear", 512, 4), ("bilinear", 16, 40)])
 def test_resize_matches_jax_image_resize(method, src, dst):
     x = rand(1, src, src, 2)
     want = np.asarray(jax.image.resize(jnp.asarray(x), (1, dst, dst, 2), method))

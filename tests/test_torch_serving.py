@@ -141,5 +141,7 @@ def test_config_types_resolve_to_the_port():
         "imaginaire_tpu_torch.models.generators.spade"
     with pytest.raises(ValueError):
         registry.port_module_name("somewhere.else")
+    assert registry.resolve("imaginaire_tpu.trainers.vid2vid", "Trainer") \
+        .__module__ == "imaginaire_tpu_torch.trainers.vid2vid"
     with pytest.raises(ModuleNotFoundError, match="ROADMAP"):
-        registry.resolve("imaginaire_tpu.trainers.vid2vid", "Trainer")
+        registry.resolve("imaginaire_tpu.trainers.pix2pixHD", "Trainer")
