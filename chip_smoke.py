@@ -12,7 +12,8 @@ Phases, one line each; any failure exits non-zero:
 2. build: compile every kernel of the main paths from csrc/ (one nvcc per
    source, all started together; sm_90a), with ptxas registers and spills;
 3. kernels: hold each kernel against its plain PyTorch version at every
-   shape the main paths give it (and, for resample2d, at edge shapes),
+   shape the main paths give it (and, for resample2d, correlation and
+   channelnorm, at edge shapes),
    and time both (CUDA events, L2 flushed before each launch) beside the
    card's bound for the same work and, where one exists, the PyTorch
    call that computes the same function;
@@ -28,7 +29,17 @@ Phases, one line each; any failure exits non-zero:
    reset just before and read just after; the frames, the warp against
    the plain version and the isolation of the streams are checked, and
    one warp frame is profiled;
-6. a ``kernels`` JSON line, the nvidia-smi line, and the final JSON line.
+6. FlowNet2 teacher path: the port's vid2vid trainer built from the same
+   config (``flow_network.allow_random_init`` on, ``weights_path``
+   dropped, ``flow_cache: {enabled: True, mode: producer}``) attaches the
+   teacher's flow to two seeded clips of (2, 4, 3, 512, 1024) frames (6
+   frame pairs per attach) through ``_start_of_iteration``; the launch
+   counters are reset just before and read just after (correlation 1,
+   channelnorm 6, resample2d 5 per teacher forward); the outputs, the
+   confidence map against the plain warp, the card's flow against the
+   port's CPU run at (1, 2, 3, 128, 256) (TF32 off) and a disk-cache
+   round trip are checked, and one attach is profiled;
+7. a ``kernels`` JSON line, the nvidia-smi line, and the final JSON line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -108,6 +119,36 @@ TOL_STREAM_REL = 1e-2
 V2V_LABELS = 35  # Cityscapes label classes
 V2V_HW = (512, 1024)
 STREAM_FRAMES = {"A": 5, "B": 3}
+
+# correlation: FlowNetC's cost volume of the attach's 6 frame pairs at
+# 512x1024 (conv3 maps), timed per frame pair; and edge shapes (an odd
+# map, stride2 2, a map smaller than the displacement window)
+FLOWNETC = dict(pad_size=20, max_displacement=20, stride2=2)
+CORR_PATH_SHAPE = (6, 256, 64, 128)
+CORR_PAIR_SHAPE = (1, 256, 64, 128)
+CORR_EDGE = [((1, 8, 7, 9), dict(pad_size=2, max_displacement=2, stride2=1)),
+             ((2, 16, 13, 17), dict(pad_size=4, max_displacement=4, stride2=2)),
+             ((1, 256, 8, 12), FLOWNETC)]
+# channelnorm: FlowNet2's 3-channel image differences (4 calls per
+# forward) and 2-channel flows (2 calls), 6 pairs, timed per frame pair;
+# edge shapes with p = 2, 1 and 3
+CN_PATH = [((6, 3, 512, 1024), 4), ((6, 2, 512, 1024), 2)]
+CN_EDGE = [((1, 1, 5, 7), 2), ((2, 5, 3, 3), 1), ((2, 5, 3, 3), 3)]
+# kernel vs plain version: fp32 max-abs (the same fp32 products summed
+# in another order, with fused multiply-adds; outputs of magnitude < 40);
+# bf16 max-abs over the plain output's max magnitude (both round once)
+TOL_CORR_FP32 = 1e-5
+TOL_CN_FP32 = 1e-5
+TOL_FLOW_BF16_REL = 1e-2
+# the teacher path
+TEACHER_CLIP = (2, 4, 3, 512, 1024)  # train batch 2 x initial_sequence_length 4
+TEACHER_LAUNCHES = {"correlation": 1, "channelnorm": 6, "resample2d": 5}
+TEACHER_CHECK_HW = (128, 256)
+# the card's flow against the port's CPU run of the same weights (TF32
+# off), max-abs over the flow's max magnitude: cuDNN's and the CPU's fp32
+# convolutions sum in other orders through ~100 layers
+TOL_TEACHER_REL = 1e-3
+TEACHER_PARAMS = 162_518_834
 
 
 def phase(label, **fields):
@@ -498,8 +539,269 @@ def vid2vid_path(rs, spade_mod):
     return row
 
 
+def correlation_bound_ms(shape, n_dd, elem_bytes):
+    """Least time for one call: x1 and x2 read once and out written once
+    at HBM rate, against one multiply-add (2 flops) per channel of every
+    output at the fp32 peak; the larger of the two."""
+    b, c, h, w = shape
+    pixels = b * h * w
+    bytes_ms = (2 * c + n_dd) * pixels * elem_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * c * n_dd * pixels / FP32_FLOPS * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def channelnorm_bound_ms(shape, elem_bytes):
+    """Least time for one call: x read once and out written once at HBM
+    rate, against a multiply-add per element and a root per pixel at the
+    fp32 peak; the larger of the two."""
+    b, c, h, w = shape
+    pixels = b * h * w
+    bytes_ms = (c + 1) * pixels * elem_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = (2 * c + 1) * pixels / FP32_FLOPS * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def check_against_plain(name, got, want, dtype, tol_fp32, **fields):
+    """Raise unless got equals want within the stated tolerance; returns
+    the error (max-abs in fp32, relative to the output in bf16)."""
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    if dtype == torch.float32:
+        ok = err <= tol_fp32
+    else:
+        err = err / max(want.float().abs().max().item(), 1e-30)
+        ok = err <= TOL_FLOW_BF16_REL
+    if not ok:
+        raise AssertionError(f"{name} {fields} {dtype}: error {err}")
+    phase("kernel_check", name=name, dtype=str(dtype).split(".")[-1],
+          error=err, **fields)
+    return err
+
+
+def check_correlation(corr):
+    """Phase 3c: correlation kernel vs plain at the path's shape and the
+    edge shapes, fp32 and bf16; times per frame pair (and for the path's
+    6 pairs), fp32, beside the plain version and the operations bound.
+    No single PyTorch call computes the cost volume."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    rows, max_err = [], 0.0
+    for shape, kw in [(CORR_PATH_SHAPE, FLOWNETC)] + CORR_EDGE:
+        x1 = torch.randn(shape, generator=gen, device="cuda")
+        x2 = torch.randn(shape, generator=gen, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            a, b = x1.to(dtype), x2.to(dtype)
+            with torch.no_grad():
+                got = corr.correlation(a, b, **kw)
+            err = check_against_plain("correlation", got,
+                                      corr.correlation_plain(a, b, **kw), dtype,
+                                      TOL_CORR_FP32, shape=list(shape), **kw)
+            if dtype == torch.float32:
+                max_err = max(max_err, err)
+    for shape in (CORR_PAIR_SHAPE, CORR_PATH_SHAPE):
+        x1 = torch.randn(shape, generator=gen, device="cuda")
+        x2 = torch.randn(shape, generator=gen, device="cuda")
+        n_d = corr.num_displacements(FLOWNETC["max_displacement"],
+                                     FLOWNETC["stride2"])
+        bound, bound_by = correlation_bound_ms(shape, n_d * n_d, 4)
+        row = {"shape": list(shape), "calls": 1,
+               "ms": time_ms(lambda: corr.correlation(x1, x2, **FLOWNETC)),
+               "plain_ms": time_ms(lambda: corr.correlation_plain(x1, x2, **FLOWNETC),
+                                   iters=5, warmup=1),
+               "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+               "max_abs_err": max_err}
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        phase("kernel", name="correlation", **row)
+    torch.cuda.empty_cache()
+    return rows, max_err
+
+
+def check_channelnorm(cn):
+    """Phase 3d: channelnorm kernel vs plain at the path's shapes and the
+    edge shapes, fp32 and bf16; times per frame pair (and for the path's
+    6 pairs), fp32, beside the plain version, the bytes bound and
+    torch.linalg.vector_norm."""
+    gen = torch.Generator(device="cuda").manual_seed(1357)
+    rows, max_err = [], 0.0
+    for shape, p in [(shape, 2) for shape, _ in CN_PATH] + CN_EDGE:
+        x = torch.randn(shape, generator=gen, device="cuda") * 10
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = x.to(dtype)
+            with torch.no_grad():
+                got = cn.channelnorm(xd, p)
+            err = check_against_plain("channelnorm", got,
+                                      cn.channelnorm_plain(xd, p), dtype,
+                                      TOL_CN_FP32, shape=list(shape), p=p)
+            if dtype == torch.float32:
+                max_err = max(max_err, err)
+    for shape, calls in CN_PATH:
+        for batch in (1, shape[0]):
+            bshape = (batch,) + shape[1:]
+            x = torch.randn(bshape, generator=gen, device="cuda") * 10
+            bound, bound_by = channelnorm_bound_ms(bshape, 4)
+            row = {"shape": list(bshape), "calls": calls,
+                   "ms": time_ms(lambda: cn.channelnorm(x)),
+                   "plain_ms": time_ms(lambda: cn.channelnorm_plain(x)),
+                   "library_ms": time_ms(lambda: torch.linalg.vector_norm(
+                       x, 2, dim=1, keepdim=True)),
+                   "bound_ms": bound, "bound_by": bound_by,
+                   "max_abs_err": max_err}
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            rows.append(row)
+            phase("kernel", name="channelnorm", **row)
+    torch.cuda.empty_cache()
+    return rows, max_err
+
+
+def moving_clip(shape, gen):
+    """(B, T, 3, H, W) frames in [-1, 1]: a few smooth random waves
+    drifting by a pixel or two a frame, plus noise of std 0.05, so that
+    the squared warp error of a pixel falls on either side of the
+    confidence threshold (0.02; the noise alone gives 0.005 chi2(3)) and
+    the confidence check sees both values."""
+    b, t, c, h, w = shape
+    ys = torch.arange(h, device="cuda", dtype=torch.float32).view(1, 1, 1, h, 1)
+    xs = torch.arange(w, device="cuda", dtype=torch.float32).view(1, 1, 1, 1, w)
+    ts = torch.arange(t, device="cuda", dtype=torch.float32).view(1, t, 1, 1, 1)
+    frames = torch.zeros(shape, device="cuda")
+    for _ in range(4):
+        freq = torch.rand((b, 1, c, 1, 2), generator=gen, device="cuda") * 0.05
+        phase0 = torch.rand((b, 1, c, 1, 1), generator=gen, device="cuda") * 6.283
+        drift = torch.rand((b, 1, 1, 1, 2), generator=gen, device="cuda") * 4 - 2
+        frames += torch.sin((xs + drift[..., :1] * ts) * freq[..., :1]
+                            + (ys + drift[..., 1:] * ts) * freq[..., 1:] + phase0)
+    frames = frames / 4 + 0.05 * torch.randn(shape, generator=gen, device="cuda")
+    return frames.clamp(-1, 1).contiguous()
+
+
+def teacher_path(corr, cn, rs):
+    """Phase 6: the FlowNet2 teacher at Cityscapes width on the card."""
+    import tempfile
+
+    from imaginaire_tpu_torch.config import Config
+    from imaginaire_tpu_torch.flow.cache import TeacherFlowCache, flow_cache_settings
+    from imaginaire_tpu_torch.flow.flow_net import FlowNet
+    from imaginaire_tpu_torch.ops import build
+    from imaginaire_tpu_torch.trainers.vid2vid import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True  # the teacher runs the defaults
+    cfg = Config(V2V_CONFIG)
+    cfg.flow_network.allow_random_init = True
+    cfg.flow_network.pop("weights_path", None)
+    cfg.flow_cache = {"enabled": True, "mode": "producer"}
+    gen = torch.Generator(device="cuda").manual_seed(97531)
+    clips = [moving_clip(TEACHER_CLIP, gen) for _ in range(2)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    teacher = trainer.flow_cache
+    if teacher is None or teacher.mode != "producer":
+        raise AssertionError("the trainer built no producer-mode teacher")
+    params = sum(p.numel() for p in teacher.wrapper.model.parameters())
+
+    corr.launches = cn.launches = rs.launches = 0
+    outs, attach_ms = [], []
+    for clip in clips:
+        t1 = time.perf_counter()
+        outs.append(trainer._start_of_iteration({"images": clip}, 0))
+        torch.cuda.synchronize()
+        attach_ms.append((time.perf_counter() - t1) * 1e3)
+    launches = {"correlation": corr.launches, "channelnorm": cn.launches,
+                "resample2d": rs.launches}
+
+    b, t = TEACHER_CLIP[:2]
+    pairs = b * (t - 1)
+    expected = {k: n * len(clips) for k, n in TEACHER_LAUNCHES.items()}
+    if launches != expected:
+        raise AssertionError(f"teacher launches {launches}, expected "
+                             f"{TEACHER_LAUNCHES} per forward x {len(clips)}")
+    conf_err = 0
+    for clip, out in zip(clips, outs):
+        flow, conf = out["flow_gt"], out["conf_gt"]
+        if tuple(flow.shape) != (b, t - 1, 2) + V2V_HW \
+                or tuple(conf.shape) != (b, t - 1, 1) + V2V_HW:
+            raise AssertionError(f"teacher shapes {tuple(flow.shape)}, "
+                                 f"{tuple(conf.shape)}")
+        if not torch.isfinite(flow).all() or not ((conf == 0) | (conf == 1)).all():
+            raise AssertionError("teacher flow not finite or conf not in {0, 1}")
+        # conf against the threshold of the plain warp by the card's flow
+        im_a = clip[:, 1:].reshape((-1, 3) + V2V_HW)
+        im_b = clip[:, :-1].reshape((-1, 3) + V2V_HW)
+        plain = rs.resample2d_plain(im_b, flow.reshape((-1, 2) + V2V_HW))
+        want = (((im_a - plain) ** 2).sum(1, keepdim=True) < 0.02).float()
+        conf_err += int((want != conf.reshape(want.shape)).sum().item())
+    if conf_err:
+        raise AssertionError(f"conf differs from the plain-warp threshold at "
+                             f"{conf_err} pixels")
+    flow_max = max(o["flow_gt"].abs().max().item() for o in outs)
+    conf_mean = sum(o["conf_gt"].mean().item() for o in outs) / len(outs)
+    if not 0 < conf_mean < 1:
+        raise AssertionError(f"conf is {conf_mean} everywhere: the check "
+                             f"above saw one value only")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # the card's flow (TF32 off) against the port's CPU run, same weights
+    torch.backends.cudnn.allow_tf32 = False
+    small = moving_clip((1, 2, 3) + TEACHER_CHECK_HW, gen)
+    card_flow, _ = teacher.wrapper(small[:, 1], small[:, 0])
+    cpu = FlowNet(weights_path=teacher.wrapper.weights_path,
+                  allow_random_init=True, device="cpu")
+    cpu.model.to_empty(device="cpu")
+    cpu.model.load_state_dict(teacher.wrapper.model.state_dict())
+    cpu.initialized = True
+    cpu_flow, _ = cpu(small[:, 1].cpu(), small[:, 0].cpu())
+    cpu_scale = cpu_flow.abs().max().item()
+    cpu_err = (card_flow.cpu() - cpu_flow).abs().max().item() / max(cpu_scale, 1e-30)
+    torch.backends.cudnn.allow_tf32 = True
+    if not cpu_scale > 0 or cpu_err > TOL_TEACHER_REL:
+        raise AssertionError(f"card flow vs CPU flow: {cpu_err} of the flow's "
+                             f"magnitude {cpu_scale} (tol {TOL_TEACHER_REL})")
+
+    # a disk-mode attach: the first call misses and writes, the second
+    # hits every pair and returns the same arrays (float16 flow)
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        disk = TeacherFlowCache(teacher.wrapper, flow_cache_settings(
+            {"flow_cache": {"enabled": True, "mode": "disk"}}), cache_dir=tmp)
+        miss = disk.attach({"images": clips[0]})
+        hit = disk.attach({"images": clips[0]})
+        scale = miss["flow_gt"].abs().max().item()
+        disk_err = (hit["flow_gt"] - miss["flow_gt"]).abs().max().item()
+        if (disk.pair_misses, disk.pair_hits) != (pairs, pairs) \
+                or disk_err > scale * 2.0 ** -10 \
+                or not torch.equal(hit["conf_gt"], miss["conf_gt"]):
+            raise AssertionError(f"disk cache: misses {disk.pair_misses}, hits "
+                                 f"{disk.pair_hits}, flow error {disk_err} "
+                                 f"of {scale}")
+        disk_stats = disk.drain_stats()
+
+    profile = profile_call(lambda: trainer._start_of_iteration({"images": clips[0]}, 0))
+    if params != TEACHER_PARAMS:
+        raise AssertionError(f"teacher has {params} parameters, expected "
+                             f"{TEACHER_PARAMS}")
+    row = {"setup_s": setup_s, "clip": list(TEACHER_CLIP), "pairs_per_attach": pairs,
+           "attach_ms": attach_ms, "pair_ms": [ms / pairs for ms in attach_ms],
+           "launches": launches, "launches_per_forward": TEACHER_LAUNCHES,
+           "teacher_params": params, "flow_max_abs": flow_max,
+           "conf_mean": conf_mean, "conf_vs_plain_warp_mismatches": conf_err,
+           "card_vs_cpu_rel": cpu_err, "cpu_flow_max_abs": cpu_scale,
+           "disk_flow_max_abs_err": disk_err, "disk_stats": disk_stats,
+           "peak_mem_gib": peak, "attach": profile}
+    phase("teacher_path", **row)
+    return row
+
+
 _FAMILIES = (("spade_modulation", ("spade_modulation",)),
              ("resample2d", ("resample2d",)),
+             ("correlation", ("correlation",)),
+             ("channelnorm", ("channelnorm",)),
              ("copies", ("Memcpy", "Memset")),
              ("conv", ("conv", "xmma", "cudnn", "implicit", "winograd", "fprop",
                        "cutlass", "sm90")),
@@ -552,6 +854,8 @@ def main():
         return 2
     sys.path.insert(0, str(REPO))
     from imaginaire_tpu_torch.ops import build
+    from imaginaire_tpu_torch.ops import channelnorm as cn
+    from imaginaire_tpu_torch.ops import correlation as corr
     from imaginaire_tpu_torch.ops import resample2d as rs
     from imaginaire_tpu_torch.ops import spade_modulation as spade_mod
 
@@ -561,7 +865,7 @@ def main():
           count=torch.cuda.device_count(), nvidia_smi=smi)
 
     t0 = time.perf_counter()
-    libs = build.build_all([spade_mod.KERNEL, rs.KERNEL])
+    libs = build.build_all([spade_mod.KERNEL, rs.KERNEL, corr.KERNEL, cn.KERNEL])
     build_s = time.perf_counter() - t0
     ptxas = {name: [line.strip() for line in
                     Path(f"{lib}.log").read_text().splitlines()
@@ -572,11 +876,15 @@ def main():
 
     rows, max_err = check_modulation(spade_mod)
     rs_rows, rs_err = check_resample(rs)
+    corr_rows, corr_err = check_correlation(corr)
+    cn_rows, cn_err = check_channelnorm(cn)
     main = main_path(spade_mod)
     v2v = vid2vid_path(rs, spade_mod)
+    teacher = teacher_path(corr, cn, rs)
 
     per_forward = {key: sum(r[key] * r["calls"] for r in rows)
                    for key in ("ms", "plain_ms", "bound_ms")}
+    cn_per_pair = [r for r in cn_rows if r["shape"][0] == 1]
     kernels = [{
         "name": "spade_modulation", "route": "cuda",
         "source": "imaginaire_tpu_torch/csrc/spade_modulation.cu",
@@ -593,13 +901,31 @@ def main():
         "launches": v2v["launches"], "max_abs_err": rs_err,
         # one warp of the previous (1, 3, 512, 1024) frame, fp32, mixed flow
         **{key: rs_rows[0][key] for key in
-           ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}]
+           ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}, {
+        "name": "correlation", "route": "cuda",
+        "source": "imaginaire_tpu_torch/csrc/correlation.cu",
+        "replaces": "imaginaire_tpu/ops/pallas/correlation_kernel.py:76",
+        "launches": teacher["launches"]["correlation"], "max_abs_err": corr_err,
+        # the one call of a FlowNet2 forward of one frame pair, fp32
+        **{key: corr_rows[0][key] for key in
+           ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}, {
+        "name": "channelnorm", "route": "cuda",
+        "source": "imaginaire_tpu_torch/csrc/channelnorm.cu",
+        "replaces": "imaginaire_tpu/ops/pallas/channelnorm_kernel.py:32",
+        "launches": teacher["launches"]["channelnorm"], "max_abs_err": cn_err,
+        # the 6 calls (4 of 3 channels, 2 of 2) of a FlowNet2 forward of
+        # one frame pair, fp32
+        **{key: sum(r[key] * r["calls"] for r in cn_per_pair)
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "bound_by": cn_per_pair[0]["bound_by"]}]
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(
             {"nvidia_smi": smi, "build_s": build_s, "ptxas": ptxas,
-             "modulation": rows, "resample2d": rs_rows, "main_path": main,
-             "vid2vid_path": v2v, "kernels": kernels}, indent=1))
+             "modulation": rows, "resample2d": rs_rows,
+             "correlation": corr_rows, "channelnorm": cn_rows,
+             "main_path": main, "vid2vid_path": v2v, "teacher_path": teacher,
+             "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

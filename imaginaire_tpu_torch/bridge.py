@@ -9,8 +9,10 @@ parameter or buffer of the same path:
   ``a/b/leaf`` maps to ``module.a.b.leaf``; a flax auto-named segment
   (``BatchNorm_0``) that the port folds into its parent is skipped;
 - ``kernel`` becomes ``weight``: conv kernels HWIO -> OIHW (the inverse
-  of ``_conv`` in ``scripts/convert_weights.py``), dense kernels
-  (in, out) -> (out, in);
+  of ``_conv`` in ``scripts/convert_weights.py``); transposed-conv
+  kernels, chosen by the owner module's type (``nn.ConvTranspose2d``),
+  (kh, kw, in, out) -> (in, out, kh, kw) rotated 180 degrees (the
+  inverse of ``_convtranspose``); dense kernels (in, out) -> (out, in);
 - ``scale``, ``bias``, ``u``, ``mean`` and ``var`` keep their names.
 
 It raises on a leaf with no counterpart, on a shape mismatch, and on any
@@ -55,10 +57,14 @@ def _target(module, path):
     return owner, ".".join(names + [attr]), attr
 
 
-def _to_torch_layout(path, value):
+def _to_torch_layout(path, value, owner):
     value = np.array(value, dtype=np.float32, copy=True)
     if path[-1] == "kernel":
-        if value.ndim == 4:
+        if value.ndim == 4 and isinstance(owner, torch.nn.ConvTranspose2d):
+            # flax ConvTranspose (transpose_kernel=False) (kh, kw, in, out)
+            # -> torch (in, out, kh, kw), rotated 180 degrees
+            value = value.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+        elif value.ndim == 4:
             value = value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
         elif value.ndim == 2:
             value = value.T  # (in, out) -> (out, in)
@@ -78,7 +84,7 @@ def load_flax_variables(module, variables):
                 raise KeyError(f"two flax leaves map to {name!r} "
                                f"(second: {collection}/{'/'.join(path)})")
             dest = getattr(owner, attr)
-            src = torch.from_numpy(_to_torch_layout(path, value))
+            src = torch.from_numpy(_to_torch_layout(path, value, owner))
             if tuple(src.shape) != tuple(dest.shape):
                 raise ValueError(
                     f"{collection}/{'/'.join(path)}: shape {tuple(src.shape)} "

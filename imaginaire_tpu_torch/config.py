@@ -122,6 +122,16 @@ def default_config():
             seed=0,
         ),
         inference_args=AttrDict(),
+        # the FlowNet2 teacher's amortization (flow/cache.py): 'producer'
+        # runs it off the step on every batch, 'disk' adds the
+        # content-addressed on-disk cache, 'auto' uses disk when a cache
+        # dir resolves (flow_cache.dir or <logdir>/flow_cache)
+        flow_cache=AttrDict(
+            enabled=False,
+            mode="auto",  # auto | producer | disk
+            dir=None,  # None -> <logdir>/flow_cache
+            store_dtype="float16",  # on-disk flow dtype (conf is uint8)
+        ),
     )
 
 

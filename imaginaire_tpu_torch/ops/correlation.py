@@ -1,0 +1,150 @@
+"""correlation: the FlowNetC cost volume between two feature maps, forward.
+
+Port of ``imaginaire_tpu/ops/correlation.py`` for the configuration that
+its Pallas kernel and FlowNetC use: ``kernel_size=1``, ``stride1=1``,
+``pad_size >= max_displacement`` and ``max_displacement`` divisible by
+``stride2``. Tensors are NCHW: x1, x2 (B, C, H, W) -> (B, n_d * n_d, H,
+W) with n_d = 2 * max_displacement / stride2 + 1 displacements per axis,
+``-md, -md + s2, ..., +md``; channel ``dyi * n_d + dxi`` holds
+``sum_c x1[c, y, x] * x2pad[c, y + dy, x + dx] / C``, x2 zero-padded by
+``pad_size``. FlowNet2 is a frozen teacher, so there is no backward.
+
+- ``correlation_plain``: plain PyTorch, a loop over the displacements as
+  ``_correlation_jnp`` walks them (``ops/correlation.py:41-70``), in
+  fp32 whatever the input types, the result cast to x1's type (the
+  Pallas kernel's fp32 ``acc_ref``, ``correlation_kernel.py:44-70``).
+- ``correlation``: the wrapper. Tensors on the CPU take the plain
+  version; CUDA tensors launch the hand-written kernel
+  (``csrc/correlation.cu``) or raise. ``launches`` counts the kernel
+  launches.
+
+Other configurations raise ``NotImplementedError``. For an indivisible
+``max_displacement`` the JAX package's versions disagree with each other
+(the jnp grid runs ``arange(-md, md + 1, s2)``, the Pallas kernel takes
+``2 (md // s2) + 1`` steps from -md), so there is no one answer to port.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from imaginaire_tpu_torch.ops import build
+
+KERNEL = "correlation"
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+launches = 0  # kernel launches since the last reset (set it to 0 to reset)
+
+
+def num_displacements(max_displacement, stride2):
+    """Displacements per axis: n_d, so the output has n_d**2 channels."""
+    return 2 * (max_displacement // stride2) + 1
+
+
+def _check_args(x1, x2, pad_size, kernel_size, max_displacement, stride1,
+                stride2):
+    if x1.dim() != 4 or x1.shape != x2.shape:
+        raise ValueError(f"correlation expects matching NCHW inputs, got "
+                         f"{tuple(x1.shape)}, {tuple(x2.shape)}")
+    if not (x1.is_floating_point() and x2.is_floating_point()):
+        raise TypeError(f"correlation takes floating tensors, got {x1.dtype}, "
+                        f"{x2.dtype}")
+    if x1.shape[1] == 0:
+        raise ValueError("correlation needs at least one channel (it divides "
+                         "by C)")
+    if pad_size < max_displacement:
+        raise ValueError("pad_size must cover max_displacement")
+    if kernel_size != 1 or stride1 != 1 or stride2 < 1 or max_displacement < 0 \
+            or max_displacement % stride2 != 0:
+        raise NotImplementedError(
+            "correlation supports kernel_size=1, stride1=1 and a "
+            "max_displacement divisible by stride2 (the FlowNetC "
+            f"configuration), got kernel_size={kernel_size}, "
+            f"stride1={stride1}, max_displacement={max_displacement}, "
+            f"stride2={stride2}")
+
+
+def correlation_plain(x1, x2, pad_size=20, kernel_size=1, max_displacement=20,
+                      stride1=1, stride2=2):
+    """The cost volume in plain PyTorch (the reference the kernel is held
+    to)."""
+    _check_args(x1, x2, pad_size, kernel_size, max_displacement, stride1,
+                stride2)
+    b, c, h, w = x1.shape
+    n_d = num_displacements(max_displacement, stride2)
+    a = x1.float()
+    x2p = F.pad(x2.float(), (pad_size,) * 4)
+    out = torch.empty((b, n_d * n_d, h, w), dtype=torch.float32, device=x1.device)
+    for dyi in range(n_d):
+        row = pad_size - max_displacement + dyi * stride2
+        for dxi in range(n_d):
+            col = pad_size - max_displacement + dxi * stride2
+            shifted = x2p[:, :, row:row + h, col:col + w]
+            out[:, dyi * n_d + dxi] = (a * shifted).sum(dim=1) / c
+    return out.to(x1.dtype)
+
+
+def correlation(x1, x2, pad_size=20, kernel_size=1, max_displacement=20,
+                stride1=1, stride2=2):
+    """FlowNetC cost volume of x1, x2 (B, C, H, W) -> (B, n_d**2, H, W)."""
+    _check_args(x1, x2, pad_size, kernel_size, max_displacement, stride1,
+                stride2)
+    if x1.device.type == "cpu" and x2.device.type == "cpu":
+        return correlation_plain(x1, x2, pad_size, kernel_size,
+                                 max_displacement, stride1, stride2)
+    if x1.device.type != "cuda":
+        raise ValueError(f"correlation runs on cpu or cuda tensors, got x1 on "
+                         f"{x1.device} and x2 on {x2.device}")
+    return _launch(x1, x2, max_displacement, stride2)
+
+
+def _library():
+    lib = build.load(KERNEL)
+    lib.correlation_fwd.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.correlation_fwd.restype = ctypes.c_int
+    lib.correlation_error_string.argtypes = [ctypes.c_int]
+    lib.correlation_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(x1, x2, max_displacement, stride2):
+    global launches
+    if torch.is_grad_enabled() and (x1.requires_grad or x2.requires_grad):
+        raise NotImplementedError(
+            "correlation has no CUDA backward: FlowNet2 is a frozen teacher; "
+            "run it under torch.no_grad() or torch.inference_mode()")
+    for name, t in (("x1", x1), ("x2", x2)):
+        if t.dtype not in _DTYPE_CODES:
+            raise TypeError(f"the correlation kernel takes float32 or "
+                            f"bfloat16, got {name} {t.dtype}")
+        if t.device != x1.device:
+            raise ValueError(f"correlation tensors must share x1's device "
+                             f"({x1.device}); got {name} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"correlation {name} must be contiguous NCHW")
+    if x2.dtype != x1.dtype:
+        raise TypeError(f"correlation x1 and x2 must share a type, got "
+                        f"{x1.dtype}, {x2.dtype}")
+    b, c, h, w = x1.shape
+    n_d = num_displacements(max_displacement, stride2)
+    out = torch.empty((b, n_d * n_d, h, w), dtype=x1.dtype, device=x1.device)
+    if x1.numel() == 0:
+        return out  # no pixels: nothing to compute
+    lib = _library()
+    with torch.cuda.device(x1.device):
+        stream = torch.cuda.current_stream(x1.device).cuda_stream
+        err = lib.correlation_fwd(x1.data_ptr(), x2.data_ptr(), out.data_ptr(),
+                                  b, c, h, w, max_displacement, stride2,
+                                  _DTYPE_CODES[x1.dtype], stream)
+    if err != 0:
+        raise RuntimeError(
+            f"correlation kernel launch failed: CUDA error {err} "
+            f"({lib.correlation_error_string(err).decode()})")
+    launches += 1
+    return out

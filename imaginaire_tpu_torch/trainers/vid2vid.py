@@ -5,34 +5,81 @@ Video inference is frame-recurrent: each frame conditions on the
 trainer's own previous outputs, which ``_generate_frame`` keeps in
 (B, T, C, H, W) rings of the last ``num_frames_G - 1`` labels and
 frames; ``reset()`` starts a new sequence. Data dicts hold NCHW tensors
-(5-d with time at dim 1 for whole sequences). The FlowNet2 teacher
-(``flow_network``) supervises training only and is not built here; the
-rollout training step, the discriminators and the losses come with the
-vid2vid training slice (ROADMAP.md).
+(5-d with time at dim 1 for whole sequences).
+
+The FlowNet2 teacher (``flow_network``) is built when the generator has
+a flow branch (``gen.flow``), and with ``flow_cache.enabled`` it runs off
+the step in ``_start_of_iteration``, attaching ``flow_gt`` / ``conf_gt``
+to training batches (the teacher half of the JAX trainer's
+``_init_loss``). The rollout training step, the discriminators and the
+losses come with the vid2vid training slice (ROADMAP.md).
 """
 
 from __future__ import annotations
+
+import logging
 
 import torch
 from torch.func import functional_call
 
 from imaginaire_tpu_torch.config import cfg_get
+from imaginaire_tpu_torch.flow import (
+    FlowNet,
+    TeacherFlowCache,
+    flow_cache_settings,
+    resolve_cache_dir,
+)
 from imaginaire_tpu_torch.model_utils.fs_vid2vid import concat_frames
 from imaginaire_tpu_torch.trainers.base import BaseTrainer
 from imaginaire_tpu_torch.utils.misc import numeric_only
+
+logger = logging.getLogger(__name__)
 
 
 class Trainer(BaseTrainer):
     def __init__(self, cfg, device=None):
         super().__init__(cfg, device=device)
         self.num_frames_G = cfg_get(self.cfg.data, "num_frames_G", 3)
+        self._init_teacher(self.cfg)
         self.reset()
 
+    def _init_teacher(self, cfg):
+        """The frozen FlowNet2 teacher and its off-step cache (ref:
+        trainers/vid2vid.py:128-178 of the JAX package)."""
+        self.flow_net_wrapper = None
+        self.flow_cache = None
+        fn_cfg = cfg_get(cfg, "flow_network", None)
+        if cfg_get(cfg.gen, "flow", None) is None or fn_cfg is None:
+            return
+        try:
+            self.flow_net_wrapper = FlowNet(
+                weights_path=cfg_get(fn_cfg, "weights_path", None),
+                allow_random_init=cfg_get(fn_cfg, "allow_random_init", False),
+                device=self.device)
+            self.flow_net_wrapper.init_params(0)
+        except FileNotFoundError as e:
+            logger.warning("FlowNet2 teacher unavailable (%s); using "
+                           "warp-consistency flow loss.", e)
+            self.flow_net_wrapper = None
+            return
+        settings = flow_cache_settings(cfg)
+        if settings.enabled:
+            self.flow_cache = TeacherFlowCache(
+                self.flow_net_wrapper, settings,
+                cache_dir=resolve_cache_dir(cfg))
+
     def _start_of_iteration(self, data, current_iteration):
-        """Data hook before a frame or sequence. Pose datasets need
-        DensePose preprocessing, which is not in the port yet; other
-        data passes through (the flow-cache attachment of the JAX
-        trainer serves training only)."""
+        """Data hook before a frame or sequence. Training iterations
+        (``current_iteration >= 0``) get the teacher's ``flow_gt`` /
+        ``conf_gt`` when the flow cache is on; a dataset's
+        ``_flow_cache`` payload that no cache consumes is dropped. Pose
+        datasets need DensePose preprocessing, which is not in the port
+        yet."""
+        if self.flow_cache is not None and current_iteration >= 0:
+            data = self.flow_cache.attach(dict(data))
+        elif isinstance(data, dict) and "_flow_cache" in data:
+            data = dict(data)
+            data.pop("_flow_cache")
         pose_cfg = cfg_get(self.cfg.data, "for_pose_dataset", None)
         if pose_cfg is not None and "pose_maps-densepose" in (
                 cfg_get(self.cfg.data, "input_labels", []) or []):

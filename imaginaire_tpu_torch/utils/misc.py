@@ -17,6 +17,8 @@ defaults where the two differ:
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -32,6 +34,18 @@ def resolve_device(device=None):
             "no CUDA device is available; pass device='cpu' to run on the "
             "CPU explicitly")
     return device
+
+
+@contextlib.contextmanager
+def fp32_matmuls():
+    """Run the enclosed CUDA matmuls in full fp32 (TF32 off), then restore
+    the caller's setting. The flag is process-wide."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
 
 
 def resize_nearest(x, hw):

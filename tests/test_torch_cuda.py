@@ -8,17 +8,23 @@ Imports no JAX, so it also runs where only PyTorch is installed:
 held against its plain PyTorch version, including the paths the serving
 main paths do not take (planes larger than the shared-memory cache,
 ragged planes, the most (gamma, beta) pairs; odd warp sizes, one
-channel, bf16 flows), and its wrapper's refusals are checked. TF32 is
-off. spade_modulation: fp32 tolerance 1e-4 (reduction order), bf16 2e-2
-of the output's magnitude (the plain version rounds between its steps,
-the kernel once). resample2d: fp32 1e-5 (the same fp32 steps), bf16
-1e-2 of the output's magnitude.
+channel, bf16 flows; odd maps, several column tiles and displacement
+groups, p other than 2), and its wrapper's refusals are checked. TF32
+is off. spade_modulation: fp32 tolerance 1e-4 (reduction order), bf16
+2e-2 of the output's magnitude (the plain version rounds between its
+steps, the kernel once). resample2d: fp32 1e-5 (the same fp32 steps),
+bf16 1e-2 of the output's magnitude. channelnorm and correlation: fp32
+1e-5 (sums of the same fp32 products in another order, fused
+multiply-adds), bf16 1e-2 of the output's magnitude (both round once,
+at the end; the rounding of an fp32 difference can cross a bf16 step).
 """
 
 import pytest
 import torch
 
 from imaginaire_tpu_torch.layers.activation_norm import SpatiallyAdaptiveNorm
+from imaginaire_tpu_torch.ops import channelnorm as cn
+from imaginaire_tpu_torch.ops import correlation as corr
 from imaginaire_tpu_torch.ops import resample2d as rs
 from imaginaire_tpu_torch.ops import spade_modulation as spade_mod
 from imaginaire_tpu_torch.utils.init_weight import init_weights
@@ -163,3 +169,104 @@ def test_resample2d_wrapper_refuses(cuda_device, bad, error):
     with pytest.raises(error):
         rs.resample2d(x, flow)
     assert rs.launches == before
+
+
+def _held_to_plain(got, want, dtype):
+    err = (got.float() - want.float()).abs().max().item()
+    if dtype == torch.float32:
+        assert err <= 1e-5, err
+    else:
+        assert err <= 1e-2 * want.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,p", [
+    ((1, 1, 5, 7), 2), ((2, 5, 3, 3), 1), ((2, 5, 3, 3), 3),
+    ((3, 2, 37, 53), 2), ((1, 3, 512, 1024), 2)])
+def test_channelnorm_kernel_matches_plain(cuda_device, shape, p, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x = (torch.randn(shape, generator=gen, device=cuda_device) * 3).to(dtype)
+    before = cn.launches
+    with torch.no_grad():
+        got = cn.channelnorm(x, p)
+    torch.cuda.synchronize()
+    assert cn.launches == before + 1
+    assert got.dtype == dtype and got.shape == (shape[0], 1) + shape[2:]
+    _held_to_plain(got, cn.channelnorm_plain(x, p), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,pad,md,s2", [
+    ((1, 8, 7, 9), 2, 2, 1),         # odd map, one tile
+    ((2, 16, 13, 17), 4, 4, 2),
+    ((1, 256, 8, 12), 20, 20, 2),    # most displacements in the padding
+    ((1, 3, 5, 300), 6, 4, 1),       # three column tiles, pad > md
+    ((2, 5, 6, 40), 13, 13, 1),      # 27 displacements: two groups
+    ((1, 40, 9, 130), 20, 20, 2),    # channel chunks of 32 + 8
+])
+def test_correlation_kernel_matches_plain(cuda_device, shape, pad, md, s2, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x1 = torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+    x2 = torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+    kw = dict(pad_size=pad, max_displacement=md, stride2=s2)
+    before = corr.launches
+    with torch.no_grad():
+        got = corr.correlation(x1, x2, **kw)
+    torch.cuda.synchronize()
+    assert corr.launches == before + 1
+    n_d = 2 * (md // s2) + 1
+    assert got.dtype == dtype and got.shape == (shape[0], n_d * n_d) + shape[2:]
+    _held_to_plain(got, corr.correlation_plain(x1, x2, **kw), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad,error", [
+    ("grad", NotImplementedError), ("strided", ValueError),
+    ("half", TypeError)])
+def test_channelnorm_wrapper_refuses(cuda_device, bad, error):
+    x = torch.randn(1, 3, 8, 8, device=cuda_device)
+    if bad == "grad":
+        x.requires_grad_(True)
+    elif bad == "strided":
+        x = x.transpose(2, 3)
+    else:
+        x = x.half()
+    before = cn.launches
+    with pytest.raises(error):
+        cn.channelnorm(x)
+    assert cn.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad,error", [
+    ("grad", NotImplementedError), ("strided", ValueError),
+    ("half", TypeError), ("mixed", TypeError), ("cpu_x2", ValueError)])
+def test_correlation_wrapper_refuses(cuda_device, bad, error):
+    x1 = torch.randn(1, 4, 8, 8, device=cuda_device)
+    x2 = torch.randn(1, 4, 8, 8, device=cuda_device)
+    if bad == "grad":
+        x2.requires_grad_(True)
+    elif bad == "strided":
+        x1 = x1.transpose(2, 3)
+    elif bad == "half":
+        x1, x2 = x1.half(), x2.half()
+    elif bad == "mixed":
+        x2 = x2.bfloat16()
+    else:
+        x2 = x2.cpu()
+    before = corr.launches
+    with pytest.raises(error):
+        corr.correlation(x1, x2, pad_size=2, max_displacement=2, stride2=1)
+    assert corr.launches == before
+
+
+@pytest.mark.cuda
+def test_empty_inputs_launch_nothing(cuda_device):
+    before = (cn.launches, corr.launches)
+    x = torch.empty(0, 3, 4, 4, device=cuda_device)
+    assert cn.channelnorm(x).shape == (0, 1, 4, 4)
+    out = corr.correlation(x, x, pad_size=2, max_displacement=2, stride2=1)
+    assert out.shape == (0, 25, 4, 4)
+    assert (cn.launches, corr.launches) == before
