@@ -60,10 +60,11 @@ REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "configs/projects/spade/cocostuff/base128_bs4.yaml"
 V2V_CONFIG = REPO / "configs/projects/vid2vid/cityscapes/bf16.yaml"
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and fp32
-# (non-tensor-core) flop/s, the rates the modulation kernel can use.
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, fp32
+# (non-tensor-core) flop/s and dense TF32 tensor-core flop/s.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 # ~0.5 ms of spin at the H100's clock: longer than the host takes to
 # enqueue one call of any timed function (the plain versions' dozen ops)
 SPIN_CYCLES = 1_000_000
@@ -126,14 +127,28 @@ STREAM_FRAMES = {"A": 5, "B": 3}
 FLOWNETC = dict(pad_size=20, max_displacement=20, stride2=2)
 CORR_PATH_SHAPE = (6, 256, 64, 128)
 CORR_PAIR_SHAPE = (1, 256, 64, 128)
-CORR_EDGE = [((1, 8, 7, 9), dict(pad_size=2, max_displacement=2, stride2=1)),
-             ((2, 16, 13, 17), dict(pad_size=4, max_displacement=4, stride2=2)),
-             ((1, 256, 8, 12), FLOWNETC)]
+def _disp(md, s2):
+    return dict(pad_size=md, max_displacement=md, stride2=s2)
+
+
+CORR_EDGE = [((1, 8, 7, 9), _disp(2, 1)),
+             ((2, 16, 13, 17), _disp(4, 2)),
+             ((1, 256, 8, 12), FLOWNETC),
+             ((1, 40, 9, 130), FLOWNETC),  # W not a multiple of the tile
+             ((1, 16, 6, 5), _disp(2, 1)),  # W smaller than one m16 tile
+             ((1, 1, 7, 20), _disp(2, 1)),  # C = 1
+             ((2, 33, 5, 24), _disp(4, 2)),  # C = 33: a partial chunk
+             ((2, 8, 5, 21), _disp(0, 1)),  # max_displacement 0: n_d = 1
+             ((1, 16, 9, 37), _disp(8, 4)),  # stride2 4
+             ((3, 16, 6, 20), _disp(4, 2))]  # B = 3
 # channelnorm: FlowNet2's 3-channel image differences (4 calls per
 # forward) and 2-channel flows (2 calls), 6 pairs, timed per frame pair;
-# edge shapes with p = 2, 1 and 3
+# edge shapes (shape, p, byte offset of the data past a 16-byte boundary):
+# p = 2, 1 and 3, an H W that is not a multiple of 4, and contiguous
+# inputs that start 4 bytes past a 16-byte boundary
 CN_PATH = [((6, 3, 512, 1024), 4), ((6, 2, 512, 1024), 2)]
-CN_EDGE = [((1, 1, 5, 7), 2), ((2, 5, 3, 3), 1), ((2, 5, 3, 3), 3)]
+CN_EDGE = [((1, 1, 5, 7), 2, 0), ((2, 5, 3, 3), 1, 0), ((2, 5, 3, 3), 3, 0),
+           ((2, 3, 5, 7), 2, 0), ((2, 3, 8, 16), 2, 4), ((1, 3, 512, 1024), 2, 4)]
 # kernel vs plain version: fp32 max-abs (the same fp32 products summed
 # in another order, with fused multiply-adds; outputs of magnitude < 40);
 # bf16 max-abs over the plain output's max magnitude (both round once)
@@ -541,13 +556,20 @@ def vid2vid_path(rs, spade_mod):
 
 def correlation_bound_ms(shape, n_dd, elem_bytes):
     """Least time for one call: x1 and x2 read once and out written once
-    at HBM rate, against one multiply-add (2 flops) per channel of every
-    output at the fp32 peak; the larger of the two."""
+    at HBM rate, against the faster of the two exact routes for one
+    multiply-add (2 flops) per channel of every output: fp32 on the CUDA
+    cores at the fp32 peak, or 3xTF32 (three products each) on the tensor
+    cores at the TF32 peak; the larger of bytes and operations. Returns
+    (ms, "bytes" or "operations", the operations' route)."""
     b, c, h, w = shape
     pixels = b * h * w
     bytes_ms = (2 * c + n_dd) * pixels * elem_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2 * c * n_dd * pixels / FP32_FLOPS * 1e3
-    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+    flops = 2 * c * n_dd * pixels
+    ops_ms, route = min((flops / FP32_FLOPS * 1e3, "fp32 CUDA cores"),
+                        (3 * flops / TF32_FLOPS * 1e3, "3xTF32 tensor cores"))
+    if bytes_ms >= ops_ms:
+        return bytes_ms, "bytes", route
+    return ops_ms, "operations", route
 
 
 def channelnorm_bound_ms(shape, elem_bytes):
@@ -604,8 +626,8 @@ def check_correlation(corr):
         x2 = torch.randn(shape, generator=gen, device="cuda")
         n_d = corr.num_displacements(FLOWNETC["max_displacement"],
                                      FLOWNETC["stride2"])
-        bound, bound_by = correlation_bound_ms(shape, n_d * n_d, 4)
-        row = {"shape": list(shape), "calls": 1,
+        bound, bound_by, route = correlation_bound_ms(shape, n_d * n_d, 4)
+        row = {"shape": list(shape), "calls": 1, "bound_route": route,
                "ms": time_ms(lambda: corr.correlation(x1, x2, **FLOWNETC)),
                "plain_ms": time_ms(lambda: corr.correlation_plain(x1, x2, **FLOWNETC),
                                    iters=5, warmup=1),
@@ -618,6 +640,19 @@ def check_correlation(corr):
     return rows, max_err
 
 
+def at_offset(x, offset_bytes):
+    """x itself, or a contiguous copy whose data starts ``offset_bytes``
+    past a 16-byte boundary (a view into a larger buffer)."""
+    if not offset_bytes:
+        return x
+    pad = offset_bytes // x.element_size()
+    view = torch.zeros(x.numel() + pad, dtype=x.dtype, device=x.device)[pad:]
+    view = view.view(x.shape).copy_(x)
+    if not view.is_contiguous() or view.data_ptr() % 16 != offset_bytes:
+        raise AssertionError(f"no contiguous view at offset {offset_bytes}")
+    return view
+
+
 def check_channelnorm(cn):
     """Phase 3d: channelnorm kernel vs plain at the path's shapes and the
     edge shapes, fp32 and bf16; times per frame pair (and for the path's
@@ -625,15 +660,16 @@ def check_channelnorm(cn):
     torch.linalg.vector_norm."""
     gen = torch.Generator(device="cuda").manual_seed(1357)
     rows, max_err = [], 0.0
-    for shape, p in [(shape, 2) for shape, _ in CN_PATH] + CN_EDGE:
+    for shape, p, offset in [(shape, 2, 0) for shape, _ in CN_PATH] + CN_EDGE:
         x = torch.randn(shape, generator=gen, device="cuda") * 10
         for dtype in (torch.float32, torch.bfloat16):
-            xd = x.to(dtype)
+            xd = at_offset(x.to(dtype), offset)
             with torch.no_grad():
                 got = cn.channelnorm(xd, p)
             err = check_against_plain("channelnorm", got,
                                       cn.channelnorm_plain(xd, p), dtype,
-                                      TOL_CN_FP32, shape=list(shape), p=p)
+                                      TOL_CN_FP32, shape=list(shape), p=p,
+                                      offset_bytes=offset)
             if dtype == torch.float32:
                 max_err = max(max_err, err)
     for shape, calls in CN_PATH:

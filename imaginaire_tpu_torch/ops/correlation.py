@@ -15,8 +15,11 @@ W) with n_d = 2 * max_displacement / stride2 + 1 displacements per axis,
   Pallas kernel's fp32 ``acc_ref``, ``correlation_kernel.py:44-70``).
 - ``correlation``: the wrapper. Tensors on the CPU take the plain
   version; CUDA tensors launch the hand-written kernel
-  (``csrc/correlation.cu``) or raise. ``launches`` counts the kernel
-  launches.
+  (``csrc/correlation.cu``, a 3xTF32 tensor-core band product) or
+  raise. ``launches`` counts the kernel launches.
+- ``tile_plan``: the kernel's tiling for one call (tile width, phases,
+  channel chunk, pipeline stages, window, shared memory, grid), computed
+  here so that the CPU tests reach it; the kernel checks it and runs it.
 
 Other configurations raise ``NotImplementedError``. For an indivisible
 ``max_displacement`` the JAX package's versions disagree with each other
@@ -38,10 +41,88 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0  # kernel launches since the last reset (set it to 0 to reset)
 
+# the kernel's struct Plan, field by field (csrc/correlation.cu)
+PLAN_FIELDS = ("tile_w", "m_tiles", "rows", "dys", "dx_groups", "dx_per_group",
+               "n_tiles8", "window", "stride_x1", "stride_x2", "chunk",
+               "stages", "threads", "smem_bytes", "x_tiles", "y_blocks",
+               "dy_groups", "grid_x")
+SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may use on sm_90
+MAX_DX_PER_GROUP = 25    # 16 + 25 - 1 window columns = 5 n8 tiles
+MAX_DYS = 3              # vertical displacements a block accumulates
+MAX_WARPS = 16           # 512 threads, one m16 tile of one row each
+# (stages, channels a stage) of the cp.async ring, in order of preference:
+# the first that fits in shared memory
+RING_CHOICES = ((3, 32), (3, 16), (3, 8), (2, 8))
+
 
 def num_displacements(max_displacement, stride2):
     """Displacements per axis: n_d, so the output has n_d**2 channels."""
     return 2 * (max_displacement // stride2) + 1
+
+
+def _ceil(a, b):
+    return -(-a // b)
+
+
+def _padded_stride(columns, elem_bytes):
+    """Shared row stride in elements: at least ``columns``, 16-byte
+    aligned, and 8 words past a multiple of 32 banks (conflict-free
+    fragment loads at stride2 1)."""
+    words = _ceil(columns * elem_bytes, 4)
+    words += (8 - words) % 32
+    return words * 4 // elem_bytes
+
+
+def tile_plan(shape, max_displacement, stride2, elem_bytes=4):
+    """The kernel's tiling of one call on x1, x2 of NCHW ``shape``:
+    a dict of PLAN_FIELDS (and ``n_d``). A block owns ``rows`` output rows
+    (y, y + s2, ...), ``dys`` vertical displacements, ``tile_w`` = 16 s2
+    ``m_tiles`` output columns and ``dx_per_group`` horizontal
+    displacements; each of its warps computes one m16 tile of one row for
+    all its displacements. Raises ValueError for what it cannot stage."""
+    b, c, h, w = shape
+    n_d = num_displacements(max_displacement, stride2)
+    s2 = stride2
+    per_phase = _ceil(w, s2)                      # output columns per phase
+    m_tiles = max(1, min(8 // s2, _ceil(per_phase, 16)))
+    if s2 * m_tiles > MAX_WARPS:
+        raise ValueError(
+            f"the correlation kernel cannot stage stride2={stride2}: a block "
+            f"has one warp per column phase and at most {MAX_WARPS} warps")
+    rows = 2 if 2 * s2 * m_tiles <= MAX_WARPS and h > s2 else 1
+    dys = min(MAX_DYS, n_d)
+    dx_groups = _ceil(n_d, MAX_DX_PER_GROUP)
+    dx_per_group = _ceil(n_d, dx_groups)
+    n_tiles8 = _ceil(15 + dx_per_group, 8)
+    tile_w = 16 * s2 * m_tiles
+    window = s2 * (16 * (m_tiles - 1) + 8 * n_tiles8)
+    stride_x1 = _padded_stride(tile_w, elem_bytes)
+    stride_x2 = _padded_stride(window, elem_bytes)
+    per_channel = elem_bytes * (rows * stride_x1 + (rows + dys - 1) * stride_x2)
+    epilogue = 4 * rows * dys * dx_per_group * tile_w
+    # the deepest ring that fits, chunks a power of two (the kernel splits
+    # a stage's row index by shift); two stages of 8 channels always fit
+    # (at most 141 KB, at stride2 16)
+    fit = max(8, 1 << (c - 1).bit_length())  # the least power of two >= C
+    for stages, chunk in RING_CHOICES:
+        chunk = min(chunk, fit)
+        smem = max(stages * chunk * per_channel, epilogue)
+        if smem <= SMEM_LIMIT:
+            break
+    x_tiles = _ceil(w, tile_w)
+    y_blocks = s2 * _ceil(_ceil(h, s2), rows)
+    dy_groups = _ceil(n_d, dys)
+    grid_x = x_tiles * dx_groups * dy_groups * y_blocks
+    if grid_x >= 2 ** 31 or b > 65535:
+        raise ValueError(f"the correlation kernel cannot stage {tuple(shape)}: "
+                         f"its grid would be ({grid_x}, {b}) blocks")
+    return dict(tile_w=tile_w, m_tiles=m_tiles, rows=rows, dys=dys,
+                dx_groups=dx_groups, dx_per_group=dx_per_group,
+                n_tiles8=n_tiles8, window=window, stride_x1=stride_x1,
+                stride_x2=stride_x2, chunk=chunk, stages=stages,
+                threads=32 * rows * s2 * m_tiles, smem_bytes=smem,
+                x_tiles=x_tiles, y_blocks=y_blocks, dy_groups=dy_groups,
+                grid_x=grid_x, n_d=n_d)
 
 
 def _check_args(x1, x2, pad_size, kernel_size, max_displacement, stride1,
@@ -106,7 +187,8 @@ def _library():
     lib.correlation_fwd.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.c_void_p]
     lib.correlation_fwd.restype = ctypes.c_int
     lib.correlation_error_string.argtypes = [ctypes.c_int]
     lib.correlation_error_string.restype = ctypes.c_char_p
@@ -136,12 +218,14 @@ def _launch(x1, x2, max_displacement, stride2):
     out = torch.empty((b, n_d * n_d, h, w), dtype=x1.dtype, device=x1.device)
     if x1.numel() == 0:
         return out  # no pixels: nothing to compute
+    plan = tile_plan(x1.shape, max_displacement, stride2, x1.element_size())
+    fields = (ctypes.c_int * len(PLAN_FIELDS))(*(plan[k] for k in PLAN_FIELDS))
     lib = _library()
     with torch.cuda.device(x1.device):
         stream = torch.cuda.current_stream(x1.device).cuda_stream
         err = lib.correlation_fwd(x1.data_ptr(), x2.data_ptr(), out.data_ptr(),
                                   b, c, h, w, max_displacement, stride2,
-                                  _DTYPE_CODES[x1.dtype], stream)
+                                  _DTYPE_CODES[x1.dtype], fields, stream)
     if err != 0:
         raise RuntimeError(
             f"correlation kernel launch failed: CUDA error {err} "

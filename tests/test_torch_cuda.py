@@ -15,14 +15,25 @@ is off. spade_modulation: fp32 tolerance 1e-4 (reduction order), bf16
 steps, the kernel once). resample2d: fp32 1e-5 (the same fp32 steps),
 bf16 1e-2 of the output's magnitude. channelnorm and correlation: fp32
 1e-5 (sums of the same fp32 products in another order, fused
-multiply-adds), bf16 1e-2 of the output's magnitude (both round once,
-at the end; the rounding of an fp32 difference can cross a bf16 step).
+multiply-adds; correlation's products are 3xTF32 on the tensor cores,
+within ~2^-22 of each fp32 product), bf16 1e-2 of the output's magnitude
+(both round once, at the end; the rounding of an fp32 difference can
+cross a bf16 step). The correlation kernel's build is also read: ptxas
+reports no spills, and its SASS carries tensor-core (HMMA) and cp.async
+(LDGSTS) instructions.
 """
+
+import re
+import shutil
+import subprocess
+from pathlib import Path
 
 import pytest
 import torch
 
+from chip_smoke import at_offset
 from imaginaire_tpu_torch.layers.activation_norm import SpatiallyAdaptiveNorm
+from imaginaire_tpu_torch.ops import build
 from imaginaire_tpu_torch.ops import channelnorm as cn
 from imaginaire_tpu_torch.ops import correlation as corr
 from imaginaire_tpu_torch.ops import resample2d as rs
@@ -181,12 +192,16 @@ def _held_to_plain(got, want, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,p", [
-    ((1, 1, 5, 7), 2), ((2, 5, 3, 3), 1), ((2, 5, 3, 3), 3),
-    ((3, 2, 37, 53), 2), ((1, 3, 512, 1024), 2)])
-def test_channelnorm_kernel_matches_plain(cuda_device, shape, p, dtype):
+@pytest.mark.parametrize("shape,p,offset", [
+    ((1, 1, 5, 7), 2, 0), ((2, 5, 3, 3), 1, 0), ((2, 5, 3, 3), 3, 0),
+    ((3, 2, 37, 53), 2, 0), ((1, 3, 512, 1024), 2, 0),
+    ((2, 3, 5, 7), 2, 0),       # H W = 35: not a multiple of the vector
+    ((2, 3, 8, 16), 2, 4),      # a contiguous view 4 bytes past 16
+    ((1, 2, 6, 10), 3, 4)])     # both, p = 3
+def test_channelnorm_kernel_matches_plain(cuda_device, shape, p, offset, dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(2)
     x = (torch.randn(shape, generator=gen, device=cuda_device) * 3).to(dtype)
+    x = at_offset(x, offset)
     before = cn.launches
     with torch.no_grad():
         got = cn.channelnorm(x, p)
@@ -204,7 +219,14 @@ def test_channelnorm_kernel_matches_plain(cuda_device, shape, p, dtype):
     ((1, 256, 8, 12), 20, 20, 2),    # most displacements in the padding
     ((1, 3, 5, 300), 6, 4, 1),       # three column tiles, pad > md
     ((2, 5, 6, 40), 13, 13, 1),      # 27 displacements: two groups
-    ((1, 40, 9, 130), 20, 20, 2),    # channel chunks of 32 + 8
+    ((1, 40, 9, 130), 20, 20, 2),    # W not a multiple of the tile
+    ((1, 16, 6, 5), 2, 2, 1),        # W smaller than one m16 tile
+    ((1, 1, 7, 20), 2, 2, 1),        # C = 1
+    ((2, 33, 5, 24), 4, 4, 2),       # C = 33: a partial channel chunk
+    ((2, 8, 5, 21), 0, 0, 1),        # max_displacement 0: n_d = 1
+    ((1, 16, 9, 37), 8, 8, 4),       # stride2 4
+    ((3, 16, 6, 20), 4, 4, 2),       # B = 3
+    ((6, 256, 64, 128), 20, 20, 2),  # the teacher's attach
 ])
 def test_correlation_kernel_matches_plain(cuda_device, shape, pad, md, s2, dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(3)
@@ -270,3 +292,24 @@ def test_empty_inputs_launch_nothing(cuda_device):
     out = corr.correlation(x, x, pad_size=2, max_displacement=2, stride2=1)
     assert out.shape == (0, 25, 4, 4)
     assert (cn.launches, corr.launches) == before
+
+
+def _correlation_library():
+    return build.build_all([corr.KERNEL])[corr.KERNEL]
+
+
+@pytest.mark.cuda
+def test_correlation_kernel_does_not_spill(cuda_device):
+    log = Path(f"{_correlation_library()}.log").read_text()
+    spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", log)
+    assert spills and all(n == "0" for n in spills), log
+
+
+@pytest.mark.cuda
+def test_correlation_kernel_uses_tensor_cores_and_cp_async(cuda_device):
+    tool = shutil.which("cuobjdump") or str(Path(build.find_nvcc()).parent / "cuobjdump")
+    if not Path(tool).is_file():
+        pytest.skip("the CUDA toolkit here has no cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_correlation_library())],
+                          capture_output=True, text=True, check=True).stdout
+    assert "HMMA" in sass and "LDGSTS" in sass

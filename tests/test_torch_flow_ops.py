@@ -150,3 +150,131 @@ def test_correlation_unsupported_configurations_raise(kwargs, error):
 def test_correlation_bad_inputs_raise(x1, x2, error):
     with pytest.raises(error):
         corr.correlation(x1, x2, pad_size=2, max_displacement=2, stride2=1)
+
+
+# --- the CUDA kernel's tile plan and arithmetic, checked on the CPU -------
+#
+# (x1 NCHW shape, max_displacement, stride2): FlowNetC at the teacher's
+# attach, and the edge shapes chip_smoke.py and tests/test_torch_cuda.py
+# hold the kernel to on the card
+PLAN_SHAPES = [
+    ((6, 256, 64, 128), 20, 2),   # the teacher path: 6 frame pairs
+    ((1, 8, 7, 9), 2, 1),         # odd map inside one tile
+    ((2, 16, 13, 17), 4, 2),
+    ((1, 256, 8, 12), 20, 2),     # most displacements in the padding
+    ((1, 3, 5, 300), 4, 1),       # three column tiles
+    ((2, 5, 6, 40), 13, 1),       # 27 displacements: two dx groups
+    ((1, 40, 9, 130), 20, 2),     # W not a multiple of the tile
+    ((1, 16, 6, 5), 2, 1),        # W smaller than one m16 tile
+    ((1, 1, 7, 20), 2, 1),        # C = 1
+    ((2, 33, 5, 24), 4, 2),       # C = 33: a partial channel chunk
+    ((2, 8, 5, 21), 0, 1),        # max_displacement 0: one displacement
+    ((1, 16, 9, 37), 8, 4),       # stride2 4
+    ((3, 16, 6, 20), 4, 2),       # B = 3
+]
+
+
+def kernel_cover(shape, plan, s2):
+    """How often the kernel's blocks write each (dyi, dxi, y, x) of one
+    batch element, following csrc/correlation.cu's index map (blockIdx.y is
+    the batch element, one to one)."""
+    _, _, h, w = shape
+    n_d = plan["n_d"]
+    counts = np.zeros((n_d, n_d, h, w), np.int32)
+    for bx in range(plan["grid_x"]):
+        xt, rest = bx % plan["x_tiles"], bx // plan["x_tiles"]
+        gx, rest = rest % plan["dx_groups"], rest // plan["dx_groups"]
+        dyg, yb = rest % plan["dy_groups"], rest // plan["dy_groups"]
+        x0, gx0 = xt * plan["tile_w"], gx * plan["dx_per_group"]
+        nx = min(plan["dx_per_group"], n_d - gx0)
+        dyi0 = dyg * plan["dys"]
+        ndy = min(plan["dys"], n_d - dyi0)
+        ys = yb % s2 + s2 * (plan["rows"] * (yb // s2) + np.arange(plan["rows"]))
+        xs = x0 + np.arange(plan["tile_w"])
+        ys, xs = ys[ys < h], xs[xs < w]
+        if ndy <= 0 or nx <= 0 or not len(ys) or not len(xs):
+            continue
+        idx = np.ix_(dyi0 + np.arange(ndy), gx0 + np.arange(nx), ys, xs)
+        counts[idx] += 1
+    return counts
+
+
+@pytest.mark.parametrize("elem_bytes", [4, 2])
+@pytest.mark.parametrize("shape,md,s2", PLAN_SHAPES)
+def test_correlation_tile_plan_covers_each_output_once(shape, md, s2, elem_bytes):
+    plan = corr.tile_plan(shape, md, s2, elem_bytes)
+    assert set(corr.PLAN_FIELDS) <= set(plan)
+    assert plan["smem_bytes"] <= corr.SMEM_LIMIT == 227 * 1024
+    assert plan["threads"] <= 512 and plan["threads"] % 32 == 0
+    assert plan["chunk"] in (8, 16, 32) and plan["stages"] in (2, 3)
+    # each m16 tile's band (16 + dx_per_group - 1 window columns) fits its
+    # n8 tiles, and the staged window holds every tile's columns
+    assert 8 * plan["n_tiles8"] >= 15 + plan["dx_per_group"]
+    assert plan["window"] >= s2 * (16 * (plan["m_tiles"] - 1) + 8 * plan["n_tiles8"])
+    stage = plan["chunk"] * elem_bytes * (
+        plan["rows"] * plan["stride_x1"]
+        + (plan["rows"] + plan["dys"] - 1) * plan["stride_x2"])
+    assert plan["stages"] * stage <= plan["smem_bytes"]
+    assert (plan["stride_x1"] * elem_bytes) % 16 == 0
+    assert (plan["stride_x1"] * elem_bytes // 4) % 32 == 8
+    counts = kernel_cover(shape, plan, s2)
+    assert counts.min() == 1 and counts.max() == 1
+
+
+@pytest.mark.parametrize("shape,md,s2", [
+    ((1, 8, 8, 8), 2, 17),             # one warp a column phase: 17 > 16
+    ((65536, 1, 1, 1), 0, 1),          # more batch elements than grid rows
+])
+def test_correlation_tile_plan_refuses_what_it_cannot_stage(shape, md, s2):
+    md = md - md % s2
+    with pytest.raises(ValueError, match="cannot stage"):
+        corr.tile_plan(shape, md, s2)
+
+
+def _tf32(a):
+    """Round fp32 to TF32 as cvt.rna does: to nearest on the 10-bit
+    mantissa, ties away from zero (13 low bits dropped)."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _band_correlation(x1, x2, md, s2, split):
+    """The kernel's arithmetic on NHWC arrays: per vertical displacement
+    one product P = A B over the channels with TF32 operands (3xTF32:
+    a_lo b_hi + a_hi b_lo + a_hi b_hi; else a_hi b_hi), fp32 sums, then the
+    band out[x, dxi] = P[x, x - md + dxi s2] / C."""
+    b, h, w, c = x1.shape
+    n_d = 2 * (md // s2) + 1
+    x2p = np.pad(x2, ((0, 0), (md, md), (md, md), (0, 0)))
+    a_hi = _tf32(x1)
+    a_lo = _tf32(x1 - a_hi)
+    out = np.zeros((b, h, w, n_d * n_d), np.float32)
+    cols = np.arange(w)[:, None] + s2 * np.arange(n_d)[None, :]
+    for dyi in range(n_d):
+        win = x2p[:, dyi * s2:dyi * s2 + h]          # (B, H, W + 2 md, C)
+        b_hi = _tf32(win)
+        b_lo = _tf32(win - b_hi)
+        prod = np.einsum("bhwc,bhvc->bhwv", a_hi, b_hi)
+        if split:
+            prod = (np.einsum("bhwc,bhvc->bhwv", a_lo, b_hi)
+                    + np.einsum("bhwc,bhvc->bhwv", a_hi, b_lo)) + prod
+        band = np.take_along_axis(prod, np.broadcast_to(cols, prod.shape[:2] + cols.shape),
+                                  axis=-1)
+        out[..., dyi * n_d:(dyi + 1) * n_d] = band / np.float32(c)
+    return out
+
+
+@pytest.mark.parametrize("channels", [8, 256])
+def test_correlation_3xtf32_meets_the_fp32_gate_and_1xtf32_does_not(channels):
+    """Why the kernel splits each operand: against the JAX jnp cost volume
+    the 3xTF32 band product stays within the card gate (1e-5, absolute;
+    chip_smoke.py TOL_CORR_FP32) and plain TF32 does not."""
+    rng = np.random.RandomState(channels)
+    x1 = rng.randn(1, 8, 16, channels).astype(np.float32)
+    x2 = rng.randn(1, 8, 16, channels).astype(np.float32)
+    want = np.asarray(jax_correlation(jnp.asarray(x1), jnp.asarray(x2),
+                                      pad_size=4, max_displacement=4, stride2=2,
+                                      implementation="jnp"))
+    split = np.abs(_band_correlation(x1, x2, 4, 2, split=True) - want).max()
+    plain = np.abs(_band_correlation(x1, x2, 4, 2, split=False) - want).max()
+    assert split <= 1e-5 < plain, (split, plain)
