@@ -16,7 +16,9 @@ Phases, one line each; any failure exits non-zero:
    channelnorm, at edge shapes),
    and time both (CUDA events, L2 flushed before each launch) beside the
    card's bound for the same work and, where one exists, the PyTorch
-   call that computes the same function;
+   call that computes the same function; resample2d is timed at both
+   paths' shapes under a mixed and a smooth flow, and (in phase 5) on
+   the frame and flow the vid2vid path gives it;
 4. SPADE path: the SPADE serving engine at full COCO-Stuff width
    (configs/projects/spade/cocostuff/base128_bs4.yaml with the base norm
    of the SPADE blocks overridden to ``instance``, fresh seeded weights)
@@ -96,11 +98,24 @@ CALLS_PER_FORWARD = sum(n for _, n in MODULATION_SHAPES)
 NUM_LABELS = 185  # 183 COCO-Stuff classes + dont-care + edge map
 N_REQUESTS = 7
 
-# resample2d: the path's warp of the previous (1, 3, 512, 1024) output
-# frame, and edge shapes (one channel, two samples, odd sizes)
+# resample2d: the vid2vid path's warp of the previous (1, 3, 512, 1024)
+# output frame and the teacher's warps of an attach's 6 frame pairs, and
+# edge cases (shape, byte offsets of x and of the flow past a 16-byte
+# boundary, flow): one channel, two samples, odd sizes, W not a multiple
+# of the kernel's 64-column tile, H = 1, C = 2 and 5, views 4 bytes past
+# 16, flows far larger than a tile
 RESAMPLE_PATH_SHAPE = (1, 3, 512, 1024)
-RESAMPLE_SHAPES = [RESAMPLE_PATH_SHAPE, (1, 1, 37, 53), (2, 3, 37, 53),
-                   (2, 1, 64, 64)]
+RESAMPLE_TEACHER_SHAPE = (6, 3, 512, 1024)
+RESAMPLE_CASES = [(RESAMPLE_PATH_SHAPE, 0, 0, "mixed"),
+                  (RESAMPLE_TEACHER_SHAPE, 0, 0, "mixed"),
+                  ((1, 1, 37, 53), 0, 0, "mixed"),
+                  ((2, 3, 37, 53), 0, 0, "mixed"),
+                  ((2, 1, 64, 64), 0, 0, "mixed"),
+                  ((1, 2, 9, 1027), 0, 0, "mixed"),
+                  ((3, 5, 1, 7), 0, 0, "mixed"),
+                  ((2, 3, 40, 300), 4, 4, "mixed"),
+                  ((1, 3, 64, 256), 0, 4, "mixed"),
+                  ((2, 2, 48, 520), 0, 0, "wide")]
 # kernel vs plain version: fp32 max-abs (both compute the same fp32
 # steps; the kernel avoids contracted multiply-adds); bf16 max-abs over
 # the plain output's max magnitude
@@ -140,7 +155,11 @@ CORR_EDGE = [((1, 8, 7, 9), _disp(2, 1)),
              ((2, 33, 5, 24), _disp(4, 2)),  # C = 33: a partial chunk
              ((2, 8, 5, 21), _disp(0, 1)),  # max_displacement 0: n_d = 1
              ((1, 16, 9, 37), _disp(8, 4)),  # stride2 4
-             ((3, 16, 6, 20), _disp(4, 2))]  # B = 3
+             ((3, 16, 6, 20), _disp(4, 2)),  # B = 3
+             ((1, 8, 6, 40), _disp(17, 17)),  # stride2 17: two phase groups
+             ((2, 5, 7, 70), _disp(34, 17)),  # stride2 17, 5 displacements
+             ((1, 8, 5, 70), _disp(64, 32)),  # stride2 32: a ring of 2 stages
+             ((2, 6, 6, 11), _disp(5, 2))]  # md 5, s2 2: 6 steps, -5 .. 5
 # channelnorm: FlowNet2's 3-channel image differences (4 calls per
 # forward) and 2-channel flows (2 calls), 6 pairs, timed per frame pair;
 # edge shapes (shape, p, byte offset of the data past a 16-byte boundary):
@@ -279,6 +298,13 @@ def mixed_flow(shape, gen):
         kind == 1, integer, torch.where(kind == 2, torch.zeros_like(frac), outside)))
 
 
+def wide_flow(shape, gen):
+    """(B, 2, H, W) fractional flow of up to 300 pixels: corners far from
+    their pixel's tile, many of them outside the frame."""
+    b, _, h, w = shape
+    return torch.rand((b, 2, h, w), generator=gen, device="cuda") * 600 - 300
+
+
 def smooth_flow(shape):
     """A smooth flow field of a few pixels, as optical flow is."""
     b, _, h, w = shape
@@ -298,54 +324,72 @@ def border_grid(flow):
 
 
 def check_resample(rs):
-    """Phase 3b: resample2d kernel vs plain at the path's shape and the
-    edge shapes, fp32 and bf16 (x in bf16 with an fp32 flow, and with a
-    bf16 flow); times at the path's shape, fp32, beside the plain
-    version, the bytes bound and F.grid_sample."""
-    import torch.nn.functional as F
-
+    """Phase 3b: resample2d kernel vs plain at the paths' shapes and the
+    edge cases, in the four combinations of fp32 and bf16 x and flow;
+    times at the paths' shapes, fp32, under the mixed and the smooth flow,
+    beside the plain version, the bytes bound and F.grid_sample."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(4321)
     rows, max_err = [], 0.0
-    for shape in RESAMPLE_SHAPES:
+    for shape, x_offset, flow_offset, kind in RESAMPLE_CASES:
         x32 = torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5
-        flow = mixed_flow(shape, gen)
-        cases = [("float32", x32, flow), ("bfloat16", x32.bfloat16(), flow),
-                 ("bfloat16/flow-bfloat16", x32.bfloat16(), flow.bfloat16())]
-        for label, x, f in cases:
-            with torch.no_grad():
-                got = rs.resample2d(x, f)
-            want = rs.resample2d_plain(x, f)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            if label == "float32":
-                max_err = max(max_err, err)
-                ok = err <= TOL_RESAMPLE_FP32
-            else:
-                err = err / want.float().abs().max().item()
-                ok = err <= TOL_RESAMPLE_BF16_REL
-            if not ok:
-                raise AssertionError(f"resample2d {shape} {label}: error {err}")
-            phase("kernel_check", name="resample2d", shape=list(shape),
-                  dtype=label, error=err)
-        if shape == RESAMPLE_PATH_SHAPE:
+        flow = (mixed_flow if kind == "mixed" else wide_flow)(shape, gen)
+        for x_dtype in (torch.float32, torch.bfloat16):
+            for flow_dtype in (torch.float32, torch.bfloat16):
+                x = at_offset(x32.to(x_dtype), x_offset)
+                f = at_offset(flow.to(flow_dtype), flow_offset)
+                with torch.no_grad():
+                    got = rs.resample2d(x, f)
+                want = rs.resample2d_plain(x, f)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                if x_dtype == torch.float32:
+                    max_err = max(max_err, err)
+                    ok = err <= TOL_RESAMPLE_FP32
+                else:
+                    err = err / want.float().abs().max().item()
+                    ok = err <= TOL_RESAMPLE_BF16_REL
+                label = (f"{str(x_dtype).split('.')[-1]}/flow-"
+                         f"{str(flow_dtype).split('.')[-1]}")
+                if not ok:
+                    raise AssertionError(f"resample2d {shape} {label} offsets "
+                                         f"{x_offset}/{flow_offset}: error {err}")
+                phase("kernel_check", name="resample2d", shape=list(shape),
+                      dtype=label, offsets=[x_offset, flow_offset], flow=kind,
+                      error=err)
+        if shape in (RESAMPLE_PATH_SHAPE, RESAMPLE_TEACHER_SHAPE):
             bound, bound_by = resample_bound_ms(shape, 4)
-            smooth = smooth_flow(shape)
-            grid = border_grid(flow)
             row = {"shape": list(shape), "calls": 1,
-                   "ms": time_ms(lambda: rs.resample2d(x32, flow)),
-                   "ms_smooth_flow": time_ms(lambda: rs.resample2d(x32, smooth)),
                    "plain_ms": time_ms(lambda: rs.resample2d_plain(x32, flow)),
-                   "library_ms": time_ms(lambda: F.grid_sample(
-                       x32, grid, mode="bilinear", padding_mode="border",
-                       align_corners=True)),
-                   "bound_ms": bound, "bound_by": bound_by, "max_abs_err": max_err}
-            row["bound_share"] = row["bound_ms"] / row["ms"]
+                   "bound_ms": bound, "bound_by": bound_by, "flows": {}}
+            for name, f in (("mixed", flow), ("smooth", smooth_flow(shape))):
+                row["flows"][name] = time_resample(rs, x32, f)
+            # the kernels line reads the mixed flow's times
+            row["ms"] = row["flows"]["mixed"]["ms"]
+            row["library_ms"] = row["flows"]["mixed"]["library_ms"]
+            row["bound_share"] = bound / row["ms"]
             rows.append(row)
             phase("kernel", name="resample2d", **row)
+    for row in rows:
+        row["max_abs_err"] = max_err
     torch.cuda.empty_cache()
     return rows, max_err
+
+
+def time_resample(rs, x, flow):
+    """The kernel's and F.grid_sample's times for one warp of x by flow,
+    and the kernel's share of its bytes bound."""
+    import torch.nn.functional as F
+
+    grid = border_grid(flow.float())
+    ms = time_ms(lambda: rs.resample2d(x, flow))
+    bound, _ = resample_bound_ms(tuple(x.shape), x.element_size(),
+                                 flow.element_size())
+    return {"ms": ms, "bound_share": bound / ms,
+            "library_ms": time_ms(lambda: F.grid_sample(
+                x.float(), grid, mode="bilinear", padding_mode="border",
+                align_corners=True))}
 
 
 def one_hot_request(rng, seed):
@@ -521,11 +565,15 @@ def vid2vid_path(rs, spade_mod):
         data_t = trainer._get_data_t(engine._to_device(frames["A"][0]), 0,
                                      session.prev_labels, session.prev_images)
         out = trainer._apply_G(engine._variables, data_t)
-        plain = rs.resample2d_plain(session.prev_images[:, -1],
-                                    out["fake_flow_maps"])
+        prev, flow = session.prev_images[:, -1], out["fake_flow_maps"]
+        plain = rs.resample2d_plain(prev, flow)
         warp_err = (out["warped_images"] - plain).abs().max().item()
         warp_rel = warp_err / plain.abs().max().item()
-        flow_max = out["fake_flow_maps"].abs().max().item()
+        flow_max = flow.abs().max().item()
+        # the kernel on the frame and the flow this path gives it
+        captured = time_resample(rs, prev.contiguous(), flow.contiguous())
+        captured.update(x_dtype=str(prev.dtype), flow_dtype=str(flow.dtype),
+                        shape=list(prev.shape))
     torch.backends.cudnn.allow_tf32 = True
     profile = profile_call(lambda: session._advance(frames["A"][0]))
     if warp_err > TOL_WARP or warp_rel > TOL_WARP_REL \
@@ -544,7 +592,8 @@ def vid2vid_path(rs, spade_mod):
            "spade_modulation_launches": spade_launches,
            "generator_params": params, "warp_vs_plain_max_abs": warp_err,
            "warp_vs_plain_rel": warp_rel,
-           "flow_max_abs": flow_max, "isolation_max_abs": iso_abs,
+           "flow_max_abs": flow_max, "resample2d_path_flow": captured,
+           "isolation_max_abs": iso_abs,
            "isolation_rel": iso_rel,
            "frame_max_abs": max(float(np.abs(o).max()) for outs in outputs.values()
                                 for o in outs),
@@ -916,6 +965,7 @@ def main():
     cn_rows, cn_err = check_channelnorm(cn)
     main = main_path(spade_mod)
     v2v = vid2vid_path(rs, spade_mod)
+    rs_rows[0]["flows"]["vid2vid"] = v2v["resample2d_path_flow"]
     teacher = teacher_path(corr, cn, rs)
 
     per_forward = {key: sum(r[key] * r["calls"] for r in rows)

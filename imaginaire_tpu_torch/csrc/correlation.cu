@@ -3,10 +3,11 @@
 //   out[b, dyi * n_d + dxi, y, x] =
 //       sum_c x1[b, c, y, x] * x2[b, c, y + dy, x + dx] / C
 //
-// with dy = -md + dyi * s2, dx = -md + dxi * s2, n_d = 2 md / s2 + 1
-// (md = max_displacement, s2 = stride2, md divisible by s2), and x2 read
-// as zero outside the frame (the reference zero-pads x2 by pad_size >= md,
-// so no displacement reaches past the padding). kernel_size 1, stride1 1:
+// with dy = -md + dyi * s2, dx = -md + dxi * s2, n_d = 2 md // s2 + 1
+// (md = max_displacement, s2 = stride2; the grid of the JAX package's
+// public op, arange(-md, md + 1, s2), also where s2 does not divide md),
+// and x2 read as zero outside the frame (the reference zero-pads x2 by
+// pad_size >= md, so no displacement reaches past the padding). kernel_size 1, stride1 1:
 // the FlowNetC configuration. Tensors are NCHW: x1, x2 (B, C, H, W), out
 // (B, n_d * n_d, H, W) in x1's type; sums are fp32.
 //
@@ -42,7 +43,11 @@
 //   and `dys` consecutive vertical displacements, so its x2 rows overlap
 //   (rows + dys - 1 of them for rows x dys slabs), one column tile of
 //   16 s2 m_tiles outputs and one group of <= 25 horizontal
-//   displacements; one warp owns one m16 tile of one row for all its dys.
+//   displacements; one warp owns one m16 tile of one phase of one row
+//   for all its dys. Up to stride2 16 a block takes all s2 column phases
+//   of its tile (at most 16 warps); above, the phases split into groups
+//   of `phases`, one group a block: each block stages its tile's columns
+//   as FlowNetC's does and computes and stores only its group's phases.
 // - Staging: each channel chunk of the x1 rows and the x2 row windows is
 //   copied with 16-byte cp.async (zero-filled outside the frame, 4-byte
 //   copies where a group of 4 columns is not 16-byte aligned or straddles
@@ -83,11 +88,13 @@ struct Plan {  // the field order of ops/correlation.py PLAN_FIELDS
   int stride_x2;     // shared row stride of x2, elements
   int chunk;         // channels per stage (8, 16 or 32)
   int stages;        // ring depth (2 or 3)
-  int threads;       // 32 rows s2 m_tiles
+  int threads;       // 32 rows phases m_tiles
   int smem_bytes;
   int x_tiles, y_blocks, dy_groups, grid_x;
+  int phases;        // column phases of a block (s2 up to stride2 16)
+  int phase_groups;  // blocks across the phases of a tile: ceil(s2 / phases)
 };
-#define PLAN_LEN 18
+#define PLAN_LEN 20
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
@@ -175,10 +182,13 @@ correlation_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
 
-  // blockIdx.x -> (x tile, dx group, dy group, y block), x tile fastest
+  // blockIdx.x -> (x tile, phase group, dx group, dy group, y block), x
+  // tile fastest
   int bx = blockIdx.x;
   const int xt = bx % p.x_tiles;
   bx /= p.x_tiles;
+  const int ph0 = (bx % p.phase_groups) * p.phases;  // the block's first phase
+  bx /= p.phase_groups;
   const int gx = bx % p.dx_groups;
   bx /= p.dx_groups;
   const int dyg = bx % p.dy_groups;
@@ -202,16 +212,17 @@ correlation_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
-  const int n_mt = s2 * p.m_tiles;
+  const int n_mt = p.phases * p.m_tiles;
   const int r = warp / n_mt;   // this warp's row of the block
   const int mt = warp % n_mt;
-  const int ph = mt % s2, m = mt / s2;
+  const int ph = ph0 + mt % p.phases, m = mt / p.phases;  // phase, m16 tile
+  const bool ph_ok = ph < s2;  // the last group of phases may be short
   const int y = y_base + s2 * r;
   bool unit_ok[CORR_MAX_DYS];
 #pragma unroll
   for (int g = 0; g < CORR_MAX_DYS; ++g) {
     const int yy = yy_base + s2 * (r + g);
-    unit_ok[g] = g < ndy && y < height && yy >= 0 && yy < height;
+    unit_ok[g] = g < ndy && ph_ok && y < height && yy >= 0 && yy < height;
   }
 
   const int stage_elems = p.chunk * (p.rows * p.stride_x1 + slots * p.stride_x2);
@@ -316,7 +327,7 @@ correlation_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
   // the band of each accumulator tile into E[r][g][dxl][column] (fp32)
   float* E = reinterpret_cast<float*>(smem_raw);
   const int dxg = p.dx_per_group;
-  if (y < height) {
+  if (y < height && ph_ok) {
 #pragma unroll
     for (int g = 0; g < CORR_MAX_DYS; ++g) {
       if (g >= ndy) continue;
@@ -344,7 +355,10 @@ correlation_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
     T* o = out + ch * plane + (int64_t)yr * width + x0;
     const float* e = E + er * p.tile_w;
     for (int col = lane; col < p.tile_w && x0 + col < width; col += 32) {
-      store_f(o + col, e[col] * inv_c);
+      // the columns of this block's phases (all of them up to stride2 16)
+      if (p.phases == s2 || (unsigned)(col % s2 - ph0) < (unsigned)p.phases) {
+        store_f(o + col, e[col] * inv_c);
+      }
     }
   }
 }
@@ -397,7 +411,9 @@ static bool plan_ok(const Plan& p, long long height, long long width, int n_d,
   const long long epilogue = 4LL * p.rows * p.dys * p.dx_per_group * p.tile_w;
   const bool tile =
       p.m_tiles >= 1 && p.rows >= 1 && p.tile_w == 16 * stride2 * p.m_tiles &&
-      p.threads == 32 * p.rows * stride2 * p.m_tiles && p.threads <= 512 &&
+      p.phases >= 1 && p.phases <= stride2 && p.phase_groups >= 1 &&
+      (long long)p.phases * p.phase_groups >= stride2 &&
+      p.threads == 32 * p.rows * p.phases * p.m_tiles && p.threads <= 512 &&
       p.dys >= 1 && p.dys <= CORR_MAX_DYS && p.dx_per_group >= 1 &&
       p.dx_per_group <= 8 * p.n_tiles8 - 15 &&
       p.window >= stride2 * (16 * (p.m_tiles - 1) + 8 * p.n_tiles8) &&
@@ -413,8 +429,8 @@ static bool plan_ok(const Plan& p, long long height, long long width, int n_d,
       (long long)p.dx_groups * p.dx_per_group >= n_d &&
       (long long)p.dy_groups * p.dys >= n_d && p.y_blocks % stride2 == 0 &&
       (long long)p.y_blocks * p.rows >= height &&
-      (long long)p.grid_x ==
-          (long long)p.x_tiles * p.dx_groups * p.dy_groups * p.y_blocks;
+      (long long)p.grid_x == (long long)p.x_tiles * p.phase_groups *
+                                 p.dx_groups * p.dy_groups * p.y_blocks;
   return tile && smem && covers;
 }
 
@@ -422,8 +438,8 @@ extern "C" {
 
 // x1, x2: NCHW-contiguous (batch, channels, height, width); out:
 // NCHW-contiguous (batch, n_d * n_d, height, width) with
-// n_d = 2 * max_disp / stride2 + 1; all of dtype (0 = float32,
-// 1 = bfloat16). max_disp >= 0, stride2 >= 1, max_disp % stride2 == 0.
+// n_d = 2 * max_disp / stride2 + 1 (integer division); all of dtype
+// (0 = float32, 1 = bfloat16). max_disp >= 0, stride2 >= 1.
 // plan: PLAN_LEN ints in the order of struct Plan, from the wrapper's
 // tile_plan. Launches on `stream` and returns the CUDA error code of the
 // launch (0 on success); it does not synchronise.
@@ -434,13 +450,13 @@ int correlation_fwd(const void* x1, const void* x2, void* out, long long batch,
   if (batch < 1 || batch > 65535 || channels < 1 || height < 1 || width < 1 ||
       channels > 0x7fffffffLL || height > 0x7fffffffLL ||
       width > 0x7fffffffLL || max_disp < 0 || stride2 < 1 ||
-      max_disp % stride2 != 0 || (dtype != 0 && dtype != 1)) {
+      (dtype != 0 && dtype != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   Plan p;
   int* fields = reinterpret_cast<int*>(&p);
   for (int i = 0; i < PLAN_LEN; ++i) fields[i] = plan[i];
-  const int n_d = 2 * (max_disp / stride2) + 1;
+  const int n_d = 2 * max_disp / stride2 + 1;
   if (!plan_ok(p, height, width, n_d, stride2, dtype == 0 ? 4 : 2)) {
     return (int)cudaErrorInvalidValue;
   }

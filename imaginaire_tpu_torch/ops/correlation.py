@@ -1,13 +1,14 @@
 """correlation: the FlowNetC cost volume between two feature maps, forward.
 
-Port of ``imaginaire_tpu/ops/correlation.py`` for the configuration that
-its Pallas kernel and FlowNetC use: ``kernel_size=1``, ``stride1=1``,
-``pad_size >= max_displacement`` and ``max_displacement`` divisible by
-``stride2``. Tensors are NCHW: x1, x2 (B, C, H, W) -> (B, n_d * n_d, H,
-W) with n_d = 2 * max_displacement / stride2 + 1 displacements per axis,
-``-md, -md + s2, ..., +md``; channel ``dyi * n_d + dxi`` holds
-``sum_c x1[c, y, x] * x2pad[c, y + dy, x + dx] / C``, x2 zero-padded by
-``pad_size``. FlowNet2 is a frozen teacher, so there is no backward.
+Port of ``imaginaire_tpu/ops/correlation.py`` for ``kernel_size=1``,
+``stride1=1`` and ``pad_size >= max_displacement``, the configuration
+that FlowNetC and the JAX package's Pallas kernel use. Tensors are
+NCHW: x1, x2 (B, C, H, W) -> (B, n_d * n_d, H, W) with
+n_d = 2 * max_displacement // stride2 + 1 displacements per axis,
+``-md, -md + s2, ..., -md + (n_d - 1) s2``; channel ``dyi * n_d + dxi``
+holds ``sum_c x1[c, y, x] * x2pad[c, y + dy, x + dx] / C``, x2
+zero-padded by ``pad_size``. FlowNet2 is a frozen teacher, so there is
+no backward.
 
 - ``correlation_plain``: plain PyTorch, a loop over the displacements as
   ``_correlation_jnp`` walks them (``ops/correlation.py:41-70``), in
@@ -21,10 +22,15 @@ W) with n_d = 2 * max_displacement / stride2 + 1 displacements per axis,
   channel chunk, pipeline stages, window, shared memory, grid), computed
   here so that the CPU tests reach it; the kernel checks it and runs it.
 
-Other configurations raise ``NotImplementedError``. For an indivisible
-``max_displacement`` the JAX package's versions disagree with each other
-(the jnp grid runs ``arange(-md, md + 1, s2)``, the Pallas kernel takes
-``2 (md // s2) + 1`` steps from -md), so there is no one answer to port.
+A ``max_displacement`` that ``stride2`` does not divide takes the grid
+of the JAX package's public op: its default ``implementation="auto"``
+sends the case to the jnp scan, which steps ``arange(-md, md + 1, s2)``,
+so n_d = 2 md // s2 + 1 steps from -md that stop short of +md where s2
+does not divide 2 md (6 steps, -5 .. 5, at md 5, s2 2; 5 steps, -7 .. 5,
+at md 7, s2 3). The JAX Pallas kernel takes ``2 (md // s2) + 1`` steps
+instead and is not what the public op answers. Other configurations
+(``kernel_size`` or ``stride1`` other than 1) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ launches = 0  # kernel launches since the last reset (set it to 0 to reset)
 PLAN_FIELDS = ("tile_w", "m_tiles", "rows", "dys", "dx_groups", "dx_per_group",
                "n_tiles8", "window", "stride_x1", "stride_x2", "chunk",
                "stages", "threads", "smem_bytes", "x_tiles", "y_blocks",
-               "dy_groups", "grid_x")
+               "dy_groups", "grid_x", "phases", "phase_groups")
 SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may use on sm_90
 MAX_DX_PER_GROUP = 25    # 16 + 25 - 1 window columns = 5 n8 tiles
 MAX_DYS = 3              # vertical displacements a block accumulates
@@ -56,8 +62,9 @@ RING_CHOICES = ((3, 32), (3, 16), (3, 8), (2, 8))
 
 
 def num_displacements(max_displacement, stride2):
-    """Displacements per axis: n_d, so the output has n_d**2 channels."""
-    return 2 * (max_displacement // stride2) + 1
+    """Displacements per axis: n_d, so the output has n_d**2 channels
+    (the length of ``arange(-md, md + 1, s2)``)."""
+    return 2 * max_displacement // stride2 + 1
 
 
 def _ceil(a, b):
@@ -76,21 +83,27 @@ def _padded_stride(columns, elem_bytes):
 def tile_plan(shape, max_displacement, stride2, elem_bytes=4):
     """The kernel's tiling of one call on x1, x2 of NCHW ``shape``:
     a dict of PLAN_FIELDS (and ``n_d``). A block owns ``rows`` output rows
-    (y, y + s2, ...), ``dys`` vertical displacements, ``tile_w`` = 16 s2
-    ``m_tiles`` output columns and ``dx_per_group`` horizontal
-    displacements; each of its warps computes one m16 tile of one row for
-    all its displacements. Raises ValueError for what it cannot stage."""
+    (y, y + s2, ...), ``dys`` vertical displacements, ``dx_per_group``
+    horizontal displacements and, of the ``tile_w`` = 16 s2 ``m_tiles``
+    output columns of its tile, the ``phases`` column phases of its phase
+    group (all s2 of them up to stride2 16); each of its warps computes
+    one m16 tile of one phase of one row for all its displacements. Every
+    block stages its tile's columns whole. Raises ValueError for what
+    cannot be staged: a grid the card cannot launch, or a tile that does
+    not fit shared memory even with one vertical displacement and a ring
+    of two stages of 8 channels (in fp32 from stride2 65 to 91, as the
+    displacements an axis go from 21 down to 3)."""
     b, c, h, w = shape
     n_d = num_displacements(max_displacement, stride2)
     s2 = stride2
     per_phase = _ceil(w, s2)                      # output columns per phase
     m_tiles = max(1, min(8 // s2, _ceil(per_phase, 16)))
-    if s2 * m_tiles > MAX_WARPS:
-        raise ValueError(
-            f"the correlation kernel cannot stage stride2={stride2}: a block "
-            f"has one warp per column phase and at most {MAX_WARPS} warps")
-    rows = 2 if 2 * s2 * m_tiles <= MAX_WARPS and h > s2 else 1
-    dys = min(MAX_DYS, n_d)
+    # one warp a (phase, m16 tile): above MAX_WARPS of them (stride2 > 16,
+    # where m_tiles is 1) the phases split into groups, one group a block
+    phase_groups = _ceil(s2 * m_tiles, MAX_WARPS)
+    phases = _ceil(s2, phase_groups)
+    n_mt = phases * m_tiles
+    rows = 2 if 2 * n_mt <= MAX_WARPS and h > s2 else 1
     dx_groups = _ceil(n_d, MAX_DX_PER_GROUP)
     dx_per_group = _ceil(n_d, dx_groups)
     n_tiles8 = _ceil(15 + dx_per_group, 8)
@@ -98,21 +111,28 @@ def tile_plan(shape, max_displacement, stride2, elem_bytes=4):
     window = s2 * (16 * (m_tiles - 1) + 8 * n_tiles8)
     stride_x1 = _padded_stride(tile_w, elem_bytes)
     stride_x2 = _padded_stride(window, elem_bytes)
-    per_channel = elem_bytes * (rows * stride_x1 + (rows + dys - 1) * stride_x2)
-    epilogue = 4 * rows * dys * dx_per_group * tile_w
-    # the deepest ring that fits, chunks a power of two (the kernel splits
-    # a stage's row index by shift); two stages of 8 channels always fit
-    # (at most 141 KB, at stride2 16)
+    # the most vertical displacements a block, then the deepest ring, that
+    # fit; chunks are a power of two (the kernel splits a stage's row
+    # index by shift)
     fit = max(8, 1 << (c - 1).bit_length())  # the least power of two >= C
-    for stages, chunk in RING_CHOICES:
-        chunk = min(chunk, fit)
+    choices = [(dys, stages, min(chunk, fit))
+               for dys in range(min(MAX_DYS, n_d), 0, -1)
+               for stages, chunk in RING_CHOICES]
+    for dys, stages, chunk in choices:
+        per_channel = elem_bytes * (rows * stride_x1
+                                    + (rows + dys - 1) * stride_x2)
+        epilogue = 4 * rows * dys * dx_per_group * tile_w
         smem = max(stages * chunk * per_channel, epilogue)
         if smem <= SMEM_LIMIT:
             break
+    else:
+        raise ValueError(f"the correlation kernel cannot stage stride2={s2}: "
+                         f"a tile of {tile_w} columns needs {smem} bytes of "
+                         f"shared memory, more than {SMEM_LIMIT}")
     x_tiles = _ceil(w, tile_w)
     y_blocks = s2 * _ceil(_ceil(h, s2), rows)
     dy_groups = _ceil(n_d, dys)
-    grid_x = x_tiles * dx_groups * dy_groups * y_blocks
+    grid_x = x_tiles * phase_groups * dx_groups * dy_groups * y_blocks
     if grid_x >= 2 ** 31 or b > 65535:
         raise ValueError(f"the correlation kernel cannot stage {tuple(shape)}: "
                          f"its grid would be ({grid_x}, {b}) blocks")
@@ -120,9 +140,10 @@ def tile_plan(shape, max_displacement, stride2, elem_bytes=4):
                 dx_groups=dx_groups, dx_per_group=dx_per_group,
                 n_tiles8=n_tiles8, window=window, stride_x1=stride_x1,
                 stride_x2=stride_x2, chunk=chunk, stages=stages,
-                threads=32 * rows * s2 * m_tiles, smem_bytes=smem,
+                threads=32 * rows * n_mt, smem_bytes=smem,
                 x_tiles=x_tiles, y_blocks=y_blocks, dy_groups=dy_groups,
-                grid_x=grid_x, n_d=n_d)
+                grid_x=grid_x, phases=phases, phase_groups=phase_groups,
+                n_d=n_d)
 
 
 def _check_args(x1, x2, pad_size, kernel_size, max_displacement, stride1,
@@ -138,12 +159,10 @@ def _check_args(x1, x2, pad_size, kernel_size, max_displacement, stride1,
                          "by C)")
     if pad_size < max_displacement:
         raise ValueError("pad_size must cover max_displacement")
-    if kernel_size != 1 or stride1 != 1 or stride2 < 1 or max_displacement < 0 \
-            or max_displacement % stride2 != 0:
+    if kernel_size != 1 or stride1 != 1 or stride2 < 1 or max_displacement < 0:
         raise NotImplementedError(
-            "correlation supports kernel_size=1, stride1=1 and a "
-            "max_displacement divisible by stride2 (the FlowNetC "
-            f"configuration), got kernel_size={kernel_size}, "
+            "correlation supports kernel_size=1, stride1=1, stride2 >= 1 and "
+            f"max_displacement >= 0, got kernel_size={kernel_size}, "
             f"stride1={stride1}, max_displacement={max_displacement}, "
             f"stride2={stride2}")
 

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where the port's flow kernels spend their time, on one NVIDIA GPU.
 
-    python3 scripts/torch_kernel_probe.py [--json PATH]
+    python3 scripts/torch_kernel_probe.py [--json PATH] [--probes NAMES]
+        [--resample-baseline SOURCE] [--correlation-baseline SOURCE]
 
-Two measurements, each timed in turns (the cases in order, then in
-reverse) with chip_smoke.py's timer:
+Three measurements (``--probes``, default all three: timer, correlation,
+resample2d), each timed in turns (the cases in order, then in reverse)
+with chip_smoke.py's timer:
 
 1. The timer's own cost: channelnorm and torch.linalg.vector_norm at one
    frame pair (C = 3 and 2, fp32), each under chip_smoke.time_ms (the L2
@@ -28,10 +30,53 @@ reverse) with chip_smoke.py's timer:
      warps) and a ring of 3 stages of 8 channels, so two blocks share an
      SM;
    - ring_3x8, ring_2x8: the kernel as it is with a ring of 3 or 2
-     stages of 8 channels.
+     stages of 8 channels;
+   - baseline: an earlier kernel source under the same plan, given by
+     ``--correlation-baseline`` (its C interface must read the plan's
+     fields in the order of ``PLAN_FIELDS``; it may read fewer of them,
+     as PR 4's 18-field kernel does); skipped without it.
 
    A variant whose edit no longer matches the source raises. The plans
    are launched through the kernel's C interface, which checks them.
+3. Variants of the resample2d kernel at the vid2vid warp (1, 3, 512,
+   1024) and the teacher's warps (6, 3, 512, 1024), fp32, under
+   chip_smoke's mixed and smooth flows; each but the floor is held to
+   the plain version (fp32 bit for bit, gate 1e-5). Each variant is
+   built from an edited copy of ``csrc/resample2d.cu``; beside its card
+   time stands its host time (``host_us``: one call enqueued behind a
+   spin kernel, so that the card runs nothing while the host is timed),
+   and the wrapper ``resample2d`` gets a host time of its own:
+
+   - as_built: ``csrc/resample2d.cu`` as it is;
+   - baseline: an earlier kernel source with the same C interface
+     ``resample2d_fwd(x, flow, out, b, c, h, w, x_dtype, flow_dtype,
+     stream)``, given by ``--resample-baseline`` (for example
+     ``git show <rev>:imaginaire_tpu_torch/csrc/resample2d.cu >
+     chip_copies/resample2d_baseline.cu``); skipped without it;
+   - px2_planes2: the corners of 2 channel planes in flight (16 gathers
+     a thread), not all 3 (24);
+   - px2_neighbours: each thread's 2 pixels neighbours (columns 2 l and
+     2 l + 1 of the tile) instead of 32 columns apart;
+   - px1_planes3: one pixel a thread (12 gathers in flight);
+   - px4_planes1, px4_neighbours: 4 pixels a thread with one plane's 16
+     gathers in flight, 32 columns apart or neighbours (the layout of
+     16-byte vectors, loaded by scalars here);
+   - regs_128: up to 128 registers a thread (2 blocks an SM, not 4);
+   - plain_loads: the corner gathers by plain loads, not ``__ldg``;
+   - default_caching: the flow loaded and the output stored by plain
+     loads and stores, not with the evict-first hints (``__ldcs``,
+     ``__stcs``);
+   - tile_rows_4, tile_rows_1: tiles of 4 rows (128 x 4) or of one row
+     (512 x 1), the block's 8 warps laid across the row;
+   - block_per_tile: one block a tile, several waves, no grid-stride;
+   - stream_floor: a coalesced streaming kernel that moves the warp's
+     bytes (reads x and the flow with 16-byte loads, writes out) and
+     gathers nothing: the card's floor for those bytes;
+   - empty_kernel: one block that does nothing: what the timer and a
+     launch cost by themselves;
+   - grid_sample: ``F.grid_sample`` (bilinear, border, align_corners) of
+     the same warp, the library call chip_smoke.py times beside the
+     kernel (not held to the plain version: it rounds otherwise).
 
 Imports nothing of JAX. Needs nvcc and a CUDA card.
 """
@@ -44,9 +89,11 @@ import json
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
@@ -55,6 +102,7 @@ import chip_smoke  # noqa: E402  (the timer, the shapes and the card's line)
 from imaginaire_tpu_torch.ops import build  # noqa: E402
 from imaginaire_tpu_torch.ops import channelnorm as cn  # noqa: E402
 from imaginaire_tpu_torch.ops import correlation as corr  # noqa: E402
+from imaginaire_tpu_torch.ops import resample2d as rs  # noqa: E402
 
 SHAPES = [chip_smoke.CORR_PAIR_SHAPE, chip_smoke.CORR_PATH_SHAPE]
 MD, S2 = chip_smoke.FLOWNETC["max_displacement"], chip_smoke.FLOWNETC["stride2"]
@@ -127,34 +175,45 @@ def variant_plan(shape, free):
     h = shape[2]
     per_channel = 4 * (plan["rows"] * plan["stride_x1"]
                        + (plan["rows"] + plan["dys"] - 1) * plan["stride_x2"])
-    epilogue = 4 * plan["rows"] * plan["dys"] * plan["dx_per_group"] * plan["tile_w"]
-    plan["threads"] = 32 * plan["rows"] * S2 * plan["m_tiles"]
+    epilogue = (4 * plan["rows"] * plan["dys"] * plan["dx_per_group"] * 16
+                * plan["phases"] * plan["m_tiles"])
+    plan["threads"] = 32 * plan["rows"] * plan["phases"] * plan["m_tiles"]
     plan["smem_bytes"] = max(plan["stages"] * plan["chunk"] * per_channel, epilogue)
     plan["y_blocks"] = S2 * corr._ceil(corr._ceil(h, S2), plan["rows"])
-    plan["grid_x"] = (plan["x_tiles"] * plan["dx_groups"] * plan["dy_groups"]
-                      * plan["y_blocks"])
+    plan["grid_x"] = (plan["x_tiles"] * plan["phase_groups"] * plan["dx_groups"]
+                      * plan["dy_groups"] * plan["y_blocks"])
     return plan
 
 
-def build_variant(name, edits, out_dir):
-    source = build.source_path(corr.KERNEL).read_text()
-    for old, new in edits:
-        if source.count(old) != 1:
-            raise RuntimeError(f"variant {name}: the kernel source no longer "
-                               f"holds {old!r} once")
-        source = source.replace(old, new)
-    src = out_dir / f"{name}.cu"
-    lib = out_dir / f"lib{name}.so"
-    src.write_text(source)
-    done = subprocess.run(build.nvcc_command(build.find_nvcc(), src, lib),
-                          capture_output=True, text=True)
-    if done.returncode != 0:
-        raise RuntimeError(f"variant {name} did not build:\n{done.stdout}{done.stderr}")
-    regs = [line.strip() for line in (done.stdout + done.stderr).splitlines()
-            if "registers" in line or "spill" in line]
-    lib = ctypes.CDLL(str(lib))
-    lib.correlation_fwd.restype = ctypes.c_int
-    return lib, regs
+def build_variants(kernel, variants, out_dir):
+    """Build {name: (edits, source or None)} of ``kernel``, one nvcc a
+    variant, all started together; returns {name: (library, ptxas lines)}.
+    ``source`` None means the kernel's source in csrc/; each edit must
+    match it once."""
+    nvcc, procs = build.find_nvcc(), {}
+    for name, (edits, source) in variants.items():
+        if source is None:
+            source = build.source_path(kernel).read_text()
+        for old, new in edits:
+            if source.count(old) != 1:
+                raise RuntimeError(f"variant {name}: the kernel source no "
+                                   f"longer holds {old!r} once")
+            source = source.replace(old, new)
+        src = out_dir / f"{kernel}_{name}.cu"  # one file a kernel and variant:
+        lib = out_dir / f"lib{kernel}_{name}.so"  # dlopen caches by path
+        src.write_text(source)
+        procs[name] = (lib, subprocess.Popen(
+            build.nvcc_command(nvcc, src, lib), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    built = {}
+    for name, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"variant {name} did not build:\n{log}")
+        regs = [line.strip() for line in log.splitlines()
+                if "registers" in line or "spill" in line]
+        built[name] = (ctypes.CDLL(str(lib)), regs)
+    return built
 
 
 def launch(lib, x1, x2, out, plan):
@@ -172,10 +231,14 @@ def launch(lib, x1, x2, out, plan):
         raise RuntimeError(f"correlation variant launch failed: CUDA error {err}")
 
 
-def probe_correlation(gen, out_dir):
-    libs = {name: build_variant(name, edits, out_dir)
-            for name, (edits, _) in VARIANTS.items()}
-    order = list(VARIANTS) + list(reversed(VARIANTS))
+def probe_correlation(gen, out_dir, baseline):
+    variants = dict(VARIANTS)
+    specs = {name: (edits, None) for name, (edits, _) in variants.items()}
+    if baseline is not None:
+        variants["baseline"] = ([], {})
+        specs["baseline"] = ([], baseline.read_text())
+    libs = build_variants(corr.KERNEL, specs, out_dir)
+    order = list(variants) + list(reversed(variants))
     rows = []
     for shape in SHAPES:
         x1 = torch.randn(shape, generator=gen, device="cuda")
@@ -183,13 +246,13 @@ def probe_correlation(gen, out_dir):
         want = corr.correlation_plain(x1, x2, **chip_smoke.FLOWNETC)
         out = torch.empty_like(want)
         plans = {name: variant_plan(shape, free)
-                 for name, (_, free) in VARIANTS.items()}
-        times = {name: [] for name in VARIANTS}
+                 for name, (_, free) in variants.items()}
+        times = {name: [] for name in variants}
         for name in order:
             lib = libs[name][0]
             times[name].append(chip_smoke.time_ms(
                 lambda: launch(lib, x1, x2, out, plans[name])))
-        for name, (edits, free) in VARIANTS.items():
+        for name, (edits, free) in variants.items():
             row = {"probe": "correlation", "variant": name, "shape": list(shape),
                    "ms": times[name], "plan": {k: plans[name][k] for k in
                                                ("rows", "stages", "chunk", "smem_bytes")},
@@ -205,10 +268,211 @@ def probe_correlation(gen, out_dir):
     return rows
 
 
+RS_SHAPES = [chip_smoke.RESAMPLE_PATH_SHAPE, chip_smoke.RESAMPLE_TEACHER_SHAPE]
+RS_COLUMN = "    const int x0 = (rt - ty * tiles_x) * RESAMPLE_TILE_W + lane;"
+RS_NEIGHBOURS = [("  constexpr int STRIDE = 32;  // columns between a thread's pixels",
+                  "  constexpr int STRIDE = 1;"),
+                 (RS_COLUMN, RS_COLUMN.replace("+ lane;", "+ lane * RESAMPLE_PIXELS;"))]
+
+
+def rs_edits(**values):
+    """Edits of csrc/resample2d.cu's #define constants, by name: for
+    example pixels=4 sets RESAMPLE_PIXELS to 4."""
+    lines = build.source_path(rs.KERNEL).read_text().splitlines()
+    edits = []
+    for name, value in values.items():
+        line = next(line for line in lines
+                    if line.startswith(f"#define RESAMPLE_{name.upper()} "))
+        edits.append((line, f"#define RESAMPLE_{name.upper()} {value}"))
+    return edits
+
+
+def rs_tile(rows):
+    """Edits that give csrc/resample2d.cu tiles of ``rows`` rows with its
+    8 warps laid across them (8 / rows warps a row): 128 x 4 at 4 rows,
+    512 x 1 at one."""
+    per_row = 8 // rows
+    return rs_edits(tile_rows=rows) + [
+        ("#define RESAMPLE_THREADS (32 * RESAMPLE_TILE_ROWS)",
+         "#define RESAMPLE_THREADS 256"),
+        ("#define RESAMPLE_TILE_W (32 * RESAMPLE_PIXELS)  // columns of a tile",
+         f"#define RESAMPLE_TILE_W ({32 * per_row} * RESAMPLE_PIXELS)"),
+        ("  const int row = threadIdx.x >> 5, lane = threadIdx.x & 31;",
+         f"  const int row = (threadIdx.x >> 5) / {per_row};\n"
+         f"  const int lane = (threadIdx.x >> 5) % {per_row} * 32 * RESAMPLE_PIXELS"
+         f" + (threadIdx.x & 31);")]
+
+
+# name -> edits of csrc/resample2d.cu (as built: 2 pixels a thread 32
+# columns apart, 3 planes' 24 gathers in flight, 4 blocks an SM, 64 x 8
+# tiles, one wave)
+RS_VARIANTS = {
+    "as_built": [],
+    "px2_planes2": rs_edits(planes=2),
+    "px2_neighbours": RS_NEIGHBOURS,
+    "px1_planes3": rs_edits(pixels=1),
+    "px4_planes1": rs_edits(pixels=4, planes=1),
+    "px4_neighbours": rs_edits(pixels=4, planes=1) + RS_NEIGHBOURS,
+    "regs_128": rs_edits(min_blocks=2),
+    "plain_loads": [(
+        "__device__ __forceinline__ float gather_f(const float* p) { return __ldg(p); }",
+        "__device__ __forceinline__ float gather_f(const float* p) { return *p; }")],
+    "default_caching": [
+        ("__device__ __forceinline__ float load_f(const float* p) { return __ldcs(p); }",
+         "__device__ __forceinline__ float load_f(const float* p) { return *p; }"),
+        ("__device__ __forceinline__ void store_f(float* p, float v) { __stcs(p, v); }",
+         "__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }")],
+    "tile_rows_4": rs_tile(4),
+    "tile_rows_1": rs_tile(1),
+    "block_per_tile": [("  if (tiles < blocks) blocks = tiles;",
+                        "  blocks = tiles;")],
+}
+STREAM_FLOOR = r"""
+#include <cuda_runtime.h>
+// out = x * dx + dy, plane by plane: the warp's bytes, coalesced, no gather
+// (32-bit indices: the probe's shapes are small)
+__global__ void __launch_bounds__(256) stream_kernel(
+    const float4* __restrict__ x, const float4* __restrict__ flow,
+    float4* __restrict__ out, int batch, int channels, int plane4) {
+  const int n = batch * plane4;
+  for (int i = blockIdx.x * 256 + threadIdx.x; i < n; i += gridDim.x * 256) {
+    const int b = i / plane4, r = i - b * plane4;
+    const float4 fx = flow[b * 2 * plane4 + r];
+    const float4 fy = flow[(b * 2 + 1) * plane4 + r];
+    for (int c = 0; c < channels; ++c) {
+      const int o = (b * channels + c) * plane4 + r;
+      const float4 v = x[o];
+      out[o] = make_float4(v.x * fx.x + fy.x, v.y * fx.y + fy.y,
+                           v.z * fx.z + fy.z, v.w * fx.w + fy.w);
+    }
+  }
+}
+extern "C" int stream_fwd(const void* x, const void* flow, void* out,
+                          long long batch, long long channels, long long plane,
+                          void* stream) {
+  int device = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, stream_kernel, 256, 0);
+  long long blocks = (batch * plane / 4 + 255) / 256;
+  if (blocks > (long long)sms * per_sm) blocks = (long long)sms * per_sm;
+  stream_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
+      (const float4*)x, (const float4*)flow, (float4*)out, (int)batch,
+      (int)channels, (int)(plane / 4));
+  return (int)cudaGetLastError();
+}
+__global__ void empty_kernel() {}
+extern "C" int empty_fwd(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def rs_launcher(name, lib, x, flow, out):
+    """fn() that runs variant ``name`` once on fp32 x and flow into out."""
+    b, c, h, w = x.shape
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    ptrs = (x.data_ptr(), flow.data_ptr(), out.data_ptr())
+
+    def check(err):
+        if err != 0:
+            raise RuntimeError(f"resample2d variant {name}: CUDA error {err}")
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    if name == "stream_floor":
+        fn = lib.stream_fwd
+        fn.argtypes, fn.restype = [ptr] * 3 + [i64] * 3 + [ptr], i32
+        return lambda: check(fn(*ptrs, b, c, h * w, stream()))
+    if name == "empty_kernel":
+        fn = lib.empty_fwd
+        fn.argtypes, fn.restype = [ptr], i32
+        return lambda: check(fn(stream()))
+    fn = lib.resample2d_fwd  # every variant and the baseline: one interface
+    fn.argtypes, fn.restype = [ptr] * 3 + [i64] * 4 + [i32] * 2 + [ptr], i32
+    return lambda: check(fn(*ptrs, b, c, h, w, 0, 0, stream()))
+
+
+def host_us(fn, calls=200):
+    """Host time of one call of fn: the calls are enqueued behind a spin
+    kernel long enough that the card runs none of them while the host's
+    clock runs, so the time is the host's alone (us)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100 * chip_smoke.SPIN_CYCLES)
+    start = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
+
+
+def probe_resample(gen, out_dir, baseline):
+    specs = {name: (edits, None) for name, edits in RS_VARIANTS.items()}
+    if baseline is not None:
+        specs["baseline"] = ([], baseline.read_text())
+    specs["stream_floor"] = ([], STREAM_FLOOR)
+    libs = build_variants(rs.KERNEL, specs, out_dir)
+    libs["empty_kernel"] = libs["stream_floor"]
+    names = list(libs) + ["grid_sample"]
+    order = names + names[::-1]
+    rows = []
+    for shape in RS_SHAPES:
+        x = torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5
+        flows = {"mixed": chip_smoke.mixed_flow(shape, gen),
+                 "smooth": chip_smoke.smooth_flow(shape)}
+        bound, _ = chip_smoke.resample_bound_ms(shape, 4)
+        for flow_name, flow in flows.items():
+            want = rs.resample2d_plain(x, flow)
+            outs = {name: torch.empty_like(x) for name in names}
+            fns = {name: rs_launcher(name, libs[name][0], x, flow, outs[name])
+                   for name in libs}
+            grid = chip_smoke.border_grid(flow)
+            fns["grid_sample"] = lambda: F.grid_sample(
+                x, grid, mode="bilinear", padding_mode="border",
+                align_corners=True)
+            fns["wrapper"] = lambda: rs.resample2d(x, flow)  # host time only
+            times = {name: [] for name in names}
+            for name in order:
+                times[name].append(chip_smoke.time_ms(fns[name], iters=50))
+            for name in names + ["wrapper"]:
+                row = {"probe": "resample2d", "variant": name, "shape": list(shape),
+                       "flow": flow_name, "host_us": host_us(fns[name]),
+                       "ptxas": libs[name][1] if name in libs else None}
+                if name in times:
+                    ms = sum(times[name]) / len(times[name])
+                    row.update(ms=times[name], bound_ms=bound,
+                               bound_share=bound / ms)
+                if name in specs and name != "stream_floor":  # held to plain
+                    fns[name]()
+                    torch.cuda.synchronize()
+                    row["max_abs_err"] = (outs[name] - want).abs().max().item()
+                    if row["max_abs_err"] > chip_smoke.TOL_RESAMPLE_FP32:
+                        raise AssertionError(f"variant {name} disagrees with "
+                                             f"the plain version: {row}")
+                rows.append(row)
+                print(json.dumps(row), flush=True)
+    return rows
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", type=Path, default=None)
+    parser.add_argument("--probes", default="timer,correlation,resample2d",
+                        help="comma-separated: timer, correlation, resample2d")
+    parser.add_argument("--resample-baseline", type=Path, default=None,
+                        help="an earlier csrc/resample2d.cu to time beside "
+                             "the kernel as built")
+    parser.add_argument("--correlation-baseline", type=Path, default=None,
+                        help="an earlier csrc/correlation.cu to time beside "
+                             "the kernel as built")
     args = parser.parse_args()
+    probes = set(args.probes.split(","))
+    if not probes <= {"timer", "correlation", "resample2d"}:
+        parser.error(f"unknown probes in {args.probes!r}")
     if not torch.cuda.is_available():
         print("torch_kernel_probe: no CUDA device available", file=sys.stderr)
         return 2
@@ -216,8 +480,14 @@ def main():
     smi = chip_smoke.nvidia_smi()
     print(smi, flush=True)
     gen = torch.Generator(device="cuda").manual_seed(2468)
+    rows = []
     with torch.no_grad(), tempfile.TemporaryDirectory() as tmp:
-        rows = probe_timer(gen) + probe_correlation(gen, Path(tmp))
+        if "timer" in probes:
+            rows += probe_timer(gen)
+        if "correlation" in probes:
+            rows += probe_correlation(gen, Path(tmp), args.correlation_baseline)
+        if "resample2d" in probes:
+            rows += probe_resample(gen, Path(tmp), args.resample_baseline)
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps({"nvidia_smi": smi, "rows": rows}, indent=1))

@@ -124,13 +124,16 @@ def test_spade_layer_fused_equals_unfused_on_card(cuda_device):
     assert (fused - unfused).abs().max().item() <= 1e-4
 
 
-def _warp_inputs(shape, dtype, flow_dtype, device, seed=0):
+def _warp_inputs(shape, dtype, flow_dtype, device, seed=0, scale=None):
     """x and a flow mixing fractional, integer, zero and out-of-frame
-    displacements."""
+    displacements (or, given ``scale``, fractional ones up to that many
+    pixels)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     b, _, h, w = shape
     x = (torch.randn(shape, generator=gen, device=device) * 2 + 0.5).to(dtype)
     frac = torch.rand((b, 2, h, w), generator=gen, device=device) * 6 - 3
+    if scale is not None:
+        return x, (frac * (scale / 3)).to(flow_dtype)
     kind = torch.randint(0, 4, (b, 1, h, w), generator=gen, device=device)
     far = torch.tensor([1.5 * w, -1.5 * h], device=device).view(1, 2, 1, 1)
     flow = torch.where(kind == 0, frac, torch.where(
@@ -142,10 +145,21 @@ def _warp_inputs(shape, dtype, flow_dtype, device, seed=0):
 @pytest.mark.parametrize("dtype,flow_dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
     (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)])
-@pytest.mark.parametrize("shape", [(1, 1, 37, 53), (2, 3, 37, 53),
-                                   (3, 5, 1, 7), (1, 3, 512, 1024)])
-def test_resample2d_kernel_matches_plain(cuda_device, shape, dtype, flow_dtype):
-    x, flow = _warp_inputs(shape, dtype, flow_dtype, cuda_device)
+@pytest.mark.parametrize("shape,x_offset,flow_offset,scale", [
+    ((1, 1, 37, 53), 0, 0, None),
+    ((2, 3, 37, 53), 0, 0, None),
+    ((3, 5, 1, 7), 0, 0, None),        # H = 1, C = 5
+    ((1, 2, 9, 1027), 0, 0, None),     # W not a multiple of the tile
+    ((2, 3, 40, 300), 4, 4, None),     # x and flow 4 bytes past 16
+    ((1, 3, 64, 256), 0, 4, None),     # the flow alone past 16
+    ((2, 2, 48, 520), 0, 0, 300.0),    # flows far larger than a tile
+    ((1, 3, 512, 1024), 0, 0, None),   # the vid2vid warp
+    ((6, 3, 512, 1024), 0, 0, None),   # the teacher's warps
+])
+def test_resample2d_kernel_matches_plain(cuda_device, shape, x_offset,
+                                         flow_offset, scale, dtype, flow_dtype):
+    x, flow = _warp_inputs(shape, dtype, flow_dtype, cuda_device, scale=scale)
+    x, flow = at_offset(x, x_offset), at_offset(flow, flow_offset)
     before = rs.launches
     with torch.no_grad():
         got = rs.resample2d(x, flow)
@@ -226,6 +240,10 @@ def test_channelnorm_kernel_matches_plain(cuda_device, shape, p, offset, dtype):
     ((2, 8, 5, 21), 0, 0, 1),        # max_displacement 0: n_d = 1
     ((1, 16, 9, 37), 8, 8, 4),       # stride2 4
     ((3, 16, 6, 20), 4, 4, 2),       # B = 3
+    ((1, 8, 6, 40), 17, 17, 17),     # stride2 17: two phase groups a tile
+    ((2, 5, 7, 70), 34, 34, 17),     # stride2 17, 5 displacements
+    ((1, 8, 5, 70), 64, 64, 32),     # stride2 32: a ring of 2 stages
+    ((2, 6, 6, 11), 5, 5, 2),        # md 5, s2 2: 6 steps, -5 .. 5
     ((6, 256, 64, 128), 20, 20, 2),  # the teacher's attach
 ])
 def test_correlation_kernel_matches_plain(cuda_device, shape, pad, md, s2, dtype):
@@ -238,7 +256,7 @@ def test_correlation_kernel_matches_plain(cuda_device, shape, pad, md, s2, dtype
         got = corr.correlation(x1, x2, **kw)
     torch.cuda.synchronize()
     assert corr.launches == before + 1
-    n_d = 2 * (md // s2) + 1
+    n_d = 2 * md // s2 + 1
     assert got.dtype == dtype and got.shape == (shape[0], n_d * n_d) + shape[2:]
     _held_to_plain(got, corr.correlation_plain(x1, x2, **kw), dtype)
 

@@ -91,7 +91,7 @@ def test_correlation_plain_matches_jax(shape, pad, md, s2, impl):
     got = corr.correlation(nchw(x1), nchw(x2), pad_size=pad,
                            max_displacement=md, stride2=s2)
     assert corr.launches == before
-    n_d = 2 * (md // s2) + 1
+    n_d = 2 * md // s2 + 1
     assert got.shape == (shape[0], n_d * n_d, shape[1], shape[2])
     np.testing.assert_allclose(nhwc(got), want, rtol=1e-4, atol=1e-5)
 
@@ -107,23 +107,30 @@ def test_correlation_bf16_accumulates_in_fp32():
                                                    **kw).bfloat16())
 
 
-def test_correlation_indivisible_displacement_is_refused():
-    """At max_displacement 5, stride2 2 the JAX package's versions
-    disagree: the jnp grid ``arange(-5, 6, 2)`` has 6 steps (-5 .. 5),
-    the Pallas kernel takes 2 (5 // 2) + 1 = 5 steps from -5 (-5 .. 3).
-    There is no one answer to port, so the port refuses the case."""
-    rng = np.random.RandomState(6)
-    x1 = rng.randn(1, 6, 6, 3).astype(np.float32)
-    x2 = rng.randn(1, 6, 6, 3).astype(np.float32)
-    kw = dict(pad_size=5, max_displacement=5, stride2=2)
-    scan = jax_correlation(jnp.asarray(x1), jnp.asarray(x2),
-                           implementation="jnp", **kw)
-    pallas = jax_correlation(jnp.asarray(x1), jnp.asarray(x2),
-                             implementation="pallas_interpret", **kw)
-    assert scan.shape[-1] == 36 and pallas.shape[-1] == 25
+@pytest.mark.parametrize("pad,md,s2", [(5, 5, 2), (8, 7, 3)])
+def test_correlation_indivisible_displacement_matches_jax_auto(pad, md, s2):
+    """A max_displacement that stride2 does not divide: the JAX public op
+    (``implementation="auto"``) sends it to the jnp scan, whose grid
+    ``arange(-md, md + 1, s2)`` has 2 md // s2 + 1 steps (6 at md 5, s2 2:
+    -5 .. 5; 5 at md 7, s2 3: -7 .. 5). The port gives that answer. The
+    JAX versions disagree with each other there: at md 5, s2 2 the
+    Pallas kernel takes 2 (5 // 2) + 1 = 5 steps from -5 (-5 .. 3)."""
+    rng = np.random.RandomState(md)
+    x1 = rng.randn(1, 6, 7, 3).astype(np.float32)
+    x2 = rng.randn(1, 6, 7, 3).astype(np.float32)
+    kw = dict(pad_size=pad, max_displacement=md, stride2=s2)
+    want = np.asarray(jax_correlation(jnp.asarray(x1), jnp.asarray(x2),
+                                      implementation="auto", **kw))
+    n_d = corr.num_displacements(md, s2)
+    assert n_d == len(np.arange(-md, md + 1, s2)) and want.shape[-1] == n_d ** 2
+    if (md, s2) == (5, 2):
+        pallas = jax_correlation(jnp.asarray(x1), jnp.asarray(x2),
+                                 implementation="pallas_interpret", **kw)
+        assert want.shape[-1] == 36 and pallas.shape[-1] == 25
     for fn in (corr.correlation, corr.correlation_plain):
-        with pytest.raises(NotImplementedError):
-            fn(nchw(x1), nchw(x2), **kw)
+        got = fn(nchw(x1), nchw(x2), **kw)
+        assert got.shape == (1, n_d * n_d, 6, 7)
+        np.testing.assert_allclose(nhwc(got), want, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("kwargs,error", [
@@ -171,6 +178,12 @@ PLAN_SHAPES = [
     ((2, 8, 5, 21), 0, 1),        # max_displacement 0: one displacement
     ((1, 16, 9, 37), 8, 4),       # stride2 4
     ((3, 16, 6, 20), 4, 2),       # B = 3
+    ((2, 6, 6, 11), 5, 2),        # md 5, s2 2: 6 steps from -5
+    ((1, 8, 9, 37), 7, 3),        # md 7, s2 3: 5 steps from -7
+    # stride2 above 16: the column phases split into groups, one a block
+    ((1, 8, 6, 40), 17, 17), ((2, 5, 7, 70), 34, 17),
+    ((1, 8, 6, 45), 20, 20), ((1, 8, 6, 45), 40, 20),
+    ((1, 8, 5, 70), 32, 32), ((1, 8, 5, 70), 64, 32),
 ]
 
 
@@ -181,8 +194,11 @@ def kernel_cover(shape, plan, s2):
     _, _, h, w = shape
     n_d = plan["n_d"]
     counts = np.zeros((n_d, n_d, h, w), np.int32)
+    phase_cols = s2 * np.arange(16 * plan["m_tiles"])  # column - x0 of phase 0
     for bx in range(plan["grid_x"]):
         xt, rest = bx % plan["x_tiles"], bx // plan["x_tiles"]
+        pg, rest = rest % plan["phase_groups"], rest // plan["phase_groups"]
+        phases = pg * plan["phases"] + np.arange(plan["phases"])
         gx, rest = rest % plan["dx_groups"], rest // plan["dx_groups"]
         dyg, yb = rest % plan["dy_groups"], rest // plan["dy_groups"]
         x0, gx0 = xt * plan["tile_w"], gx * plan["dx_per_group"]
@@ -190,7 +206,7 @@ def kernel_cover(shape, plan, s2):
         dyi0 = dyg * plan["dys"]
         ndy = min(plan["dys"], n_d - dyi0)
         ys = yb % s2 + s2 * (plan["rows"] * (yb // s2) + np.arange(plan["rows"]))
-        xs = x0 + np.arange(plan["tile_w"])
+        xs = x0 + (phase_cols[:, None] + phases[phases < s2][None, :]).ravel()
         ys, xs = ys[ys < h], xs[xs < w]
         if ndy <= 0 or nx <= 0 or not len(ys) or not len(xs):
             continue
@@ -206,6 +222,9 @@ def test_correlation_tile_plan_covers_each_output_once(shape, md, s2, elem_bytes
     assert set(corr.PLAN_FIELDS) <= set(plan)
     assert plan["smem_bytes"] <= corr.SMEM_LIMIT == 227 * 1024
     assert plan["threads"] <= 512 and plan["threads"] % 32 == 0
+    assert plan["phases"] * plan["phase_groups"] >= s2 >= plan["phases"]
+    if s2 <= 16:  # every phase of a tile in one block
+        assert plan["phase_groups"] == 1
     assert plan["chunk"] in (8, 16, 32) and plan["stages"] in (2, 3)
     # each m16 tile's band (16 + dx_per_group - 1 window columns) fits its
     # n8 tiles, and the staged window holds every tile's columns
@@ -222,13 +241,111 @@ def test_correlation_tile_plan_covers_each_output_once(shape, md, s2, elem_bytes
 
 
 @pytest.mark.parametrize("shape,md,s2", [
-    ((1, 8, 8, 8), 2, 17),             # one warp a column phase: 17 > 16
+    ((1, 8, 4, 2048), 650, 65),        # a tile past shared memory
     ((65536, 1, 1, 1), 0, 1),          # more batch elements than grid rows
 ])
 def test_correlation_tile_plan_refuses_what_it_cannot_stage(shape, md, s2):
-    md = md - md % s2
     with pytest.raises(ValueError, match="cannot stage"):
         corr.tile_plan(shape, md, s2)
+
+
+@pytest.mark.parametrize("batch", [1, 6])
+def test_correlation_tile_plan_of_flownetc_is_unchanged(batch):
+    """FlowNetC's plan (stride2 2) at one frame pair and at the teacher's
+    attach, field for field: every column phase in one block (one phase
+    group), 2 rows x 3 dy x 128 columns, 16 warps, a ring of 3 stages of
+    16 channels."""
+    plan = corr.tile_plan((batch, 256, 64, 128), 20, 2)
+    assert plan == dict(
+        tile_w=128, m_tiles=4, rows=2, dys=3, dx_groups=1, dx_per_group=21,
+        n_tiles8=5, window=176, stride_x1=136, stride_x2=200, chunk=16,
+        stages=3, threads=512, smem_bytes=205824, x_tiles=1, y_blocks=32,
+        dy_groups=7, grid_x=224, phases=2, phase_groups=1, n_d=21)
+
+
+def _kernel_index_map(x1, x2, md, s2):
+    """The cost volume computed along csrc/correlation.cu's address
+    arithmetic, in fp64 with exact products: each block stages its x1
+    rows and x2 windows whole (zero outside the frame), each warp
+    multiplies the m16 tile of one phase of its block's group against
+    its n8 tiles, the band (j - i = dxl) goes through the epilogue buffer
+    and out by the kernel's store map, which keeps the group's phases.
+    NaN where nothing was written; raises where a value is written
+    twice."""
+    b_, c, h, w = x1.shape
+    p = corr.tile_plan(x1.shape, md, s2)
+    n_d, nt, tile_w = p["n_d"], p["n_tiles8"], p["tile_w"]
+    out = np.full((b_, n_d * n_d, h, w), np.nan)
+
+    def staged(src, b, yrow, g0, cols):
+        row = np.zeros((c, cols))
+        g = g0 + np.arange(cols)
+        ok = (g >= 0) & (g < w)
+        if 0 <= yrow < h:
+            row[:, ok] = src[b, :, yrow][:, g[ok]]
+        return row
+
+    for b in range(b_):
+        for bx in range(p["grid_x"]):
+            xt, rest = bx % p["x_tiles"], bx // p["x_tiles"]
+            ph0 = (rest % p["phase_groups"]) * p["phases"]
+            rest //= p["phase_groups"]
+            gx, rest = rest % p["dx_groups"], rest // p["dx_groups"]
+            dyg, yb = rest % p["dy_groups"], rest // p["dy_groups"]
+            x0, gx0, dyi0 = xt * tile_w, gx * p["dx_per_group"], dyg * p["dys"]
+            nx, ndy = min(p["dx_per_group"], n_d - gx0), min(p["dys"], n_d - dyi0)
+            y_base = yb % s2 + s2 * p["rows"] * (yb // s2)
+            yy_base, wx0 = y_base - md + s2 * dyi0, x0 - md + s2 * gx0
+            s1 = [staged(x1, b, y_base + s2 * r, x0, tile_w)
+                  for r in range(p["rows"])]
+            sw = [staged(x2, b, yy_base + s2 * k, wx0, p["window"])
+                  for k in range(p["rows"] + p["dys"] - 1)]
+            E = np.zeros((p["rows"], p["dys"], p["dx_per_group"], tile_w))
+            for r in range(p["rows"]):
+                for mt in range(p["phases"] * p["m_tiles"]):
+                    ph, m = ph0 + mt % p["phases"], mt // p["phases"]
+                    if ph >= s2:
+                        continue
+                    a = s1[r][:, s2 * (16 * m + np.arange(16)) + ph]
+                    for g in range(ndy):
+                        acc = a.T @ sw[r + g][:, s2 * (16 * m + np.arange(8 * nt)) + ph]
+                        for dxl in range(nx):
+                            E[r, g, dxl, s2 * (16 * m + np.arange(16)) + ph] = \
+                                acc[np.arange(16), np.arange(16) + dxl]
+            col = np.arange(tile_w)
+            keep = ((p["phases"] == s2) | ((col % s2 - ph0) % 2 ** 32 < p["phases"])) \
+                & (x0 + col < w)
+            for r in range(p["rows"]):
+                yr = y_base + s2 * r
+                for g in range(ndy):
+                    for dxl in range(nx):
+                        if yr >= h:
+                            continue
+                        ch = (dyi0 + g) * n_d + gx0 + dxl
+                        dst = out[b, ch, yr]
+                        assert np.isnan(dst[x0 + col[keep]]).all(), "written twice"
+                        dst[x0 + col[keep]] = E[r, g, dxl, keep] / c
+    return out
+
+
+@pytest.mark.parametrize("shape,md,s2", [
+    ((2, 3, 6, 11), 5, 2),     # every phase in one block; 6 steps from -5
+    ((1, 3, 9, 37), 7, 3),     # 5 steps from -7
+    ((1, 3, 6, 40), 17, 17),   # two phase groups of 9 (one phase empty)
+    ((1, 2, 5, 45), 20, 20),   # two groups of 10
+    ((1, 2, 4, 70), 32, 32),   # two groups of 16
+])
+def test_correlation_kernel_index_map_matches_plain(shape, md, s2):
+    """The kernel's addressing, followed step by step on the CPU, writes
+    every output once and computes the plain version's cost volume, for
+    blocks that hold every column phase and for phase groups."""
+    rng = np.random.RandomState(sum(shape) + md)
+    x1, x2 = rng.randn(*shape), rng.randn(*shape)
+    got = _kernel_index_map(x1, x2, md, s2)
+    want = corr.correlation_plain(torch.from_numpy(x1), torch.from_numpy(x2),
+                                  pad_size=md, max_displacement=md, stride2=s2)
+    assert not np.isnan(got).any()
+    np.testing.assert_allclose(got, want.double().numpy(), rtol=0, atol=1e-5)
 
 
 def _tf32(a):
