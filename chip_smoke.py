@@ -13,7 +13,8 @@ Phases, one line each; any failure exits non-zero:
    source, all started together; sm_90a), with ptxas registers and spills;
 3. kernels: hold each kernel against its plain PyTorch version at every
    shape the main paths give it (and, for resample2d, correlation and
-   channelnorm, at edge shapes),
+   channelnorm, at edge shapes; spade_modulation forward and backward in
+   fp32 and bf16, the bf16 forward to one ulp given the same statistics),
    and time both (CUDA events, L2 flushed before each launch) beside the
    card's bound for the same work and, where one exists, the PyTorch
    call that computes the same function; resample2d is timed at both
@@ -41,7 +42,19 @@ Phases, one line each; any failure exits non-zero:
    confidence map against the plain warp, the card's flow against the
    port's CPU run at (1, 2, 3, 128, 256) (TF32 off) and a disk-cache
    round trip are checked, and one attach is profiled;
-7. a ``kernels`` JSON line, the nvidia-smi line, and the final JSON line.
+7. SPADE training path: the port's SPADE trainer on the same COCO-Stuff
+   config with the ``instance`` override and
+   ``trainer.perceptual_loss.allow_random_init`` (the repository has no
+   VGG19 weights), fresh seeded weights, takes 10 bf16 D+G steps at batch
+   4, 256x256, on seeded one-hot labels and images made on the card; the
+   launch counters are reset just before and read just after (forward 57,
+   backward 19 a step); the losses are finite and the parameters and
+   ``u`` move; the median step, images/s, peak memory and one profiled
+   step are printed; one fp32 step (TF32 off) through the kernels is held
+   to the same step through the plain composition, and the unmodified
+   config (``sync_batch``: BatchNorm batch statistics, no kernel) takes
+   two steps;
+8. a ``kernels`` JSON line, the nvidia-smi line, and the final JSON line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -72,10 +85,22 @@ TF32_FLOPS = 495e12
 SPIN_CYCLES = 1_000_000
 
 # kernel vs plain version: fp32 max-abs (the reduction order differs);
-# bf16 max-abs over the plain output's max magnitude (the plain version
-# rounds to bf16 between its steps, the kernel once at the end)
+# bf16: at most one bf16 ulp element by element against the plain
+# version given the kernel's statistics (both round at the same steps),
+# whose mean and rstd are held to the plain ones within TOL_STATS_REL
 TOL_FP32 = 1e-4
-TOL_BF16_REL = 2e-2
+TOL_BF16_ULPS = 1.0
+TOL_STATS_REL = 1e-5
+# the backward kernel vs spade_modulation_bwd_plain on the same
+# statistics: fp32 max-abs over the plain output's max magnitude (dx sums
+# two spatial means in another order; dgamma is the same products);
+# bf16 at most one ulp element by element (both round once): dgamma one
+# ulp of its value, dx one ulp of the magnitude of the terms it sums
+# (dx_term_scale), since where they cancel dx carries the two means'
+# fp32 rounding (a first run measured 60 ulps of dx's own value at
+# (4, 2048, 16, 16), at an element near zero)
+TOL_BWD_DX_REL = 1e-5
+TOL_BWD_DGAMMA_REL = 1e-6
 # the served image against the same model with the modulation unfused
 # (TF32 off): the kernel's rounding carried through ~20 layers
 TOL_FUSED_VS_UNFUSED = 1e-3
@@ -97,6 +122,17 @@ MODULATION_SHAPES = [
 CALLS_PER_FORWARD = sum(n for _, n in MODULATION_SHAPES)
 NUM_LABELS = 185  # 183 COCO-Stuff classes + dont-care + edge map
 N_REQUESTS = 7
+# SPADE training: D+G steps at batch 4; per step the modulation runs 19
+# times in the D step's G forward (no grad), 19 in the G step's forward
+# and 19 again when the rematted blocks recompute it in the backward, and
+# its backward 19 times
+TRAIN_BATCH = 4
+TRAIN_STEPS = 10
+TRAIN_FWD_LAUNCHES = 3 * CALLS_PER_FORWARD
+TRAIN_BWD_LAUNCHES = CALLS_PER_FORWARD
+# the fp32 D+G step (TF32 off) through the kernels against the same step
+# through the plain composition: each loss and grad norm, relative
+TOL_TRAIN_REL = 1e-3
 
 # resample2d: the vid2vid path's warp of the previous (1, 3, 512, 1024)
 # output frame and the teacher's warps of an attach's 6 frame pairs, and
@@ -159,7 +195,11 @@ CORR_EDGE = [((1, 8, 7, 9), _disp(2, 1)),
              ((1, 8, 6, 40), _disp(17, 17)),  # stride2 17: two phase groups
              ((2, 5, 7, 70), _disp(34, 17)),  # stride2 17, 5 displacements
              ((1, 8, 5, 70), _disp(64, 32)),  # stride2 32: a ring of 2 stages
-             ((2, 6, 6, 11), _disp(5, 2))]  # md 5, s2 2: 6 steps, -5 .. 5
+             ((2, 6, 6, 11), _disp(5, 2)),  # md 5, s2 2: 6 steps, -5 .. 5
+             # stride2 65 and 91: fp32 tiles past shared memory take the
+             # kernel's direct path
+             ((1, 8, 4, 2048), _disp(650, 65)),
+             ((2, 16, 6, 300), _disp(182, 91))]
 # channelnorm: FlowNet2's 3-channel image differences (4 calls per
 # forward) and 2-channel flows (2 calls), 6 pairs, timed per frame pair;
 # edge shapes (shape, p, byte offset of the data past a 16-byte boundary):
@@ -218,6 +258,26 @@ def time_ms(fn, iters=20, warmup=3):
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
 
+def bf16_ulps(got, want, scale=None):
+    """Largest |got - want| in units of the bf16 spacing at |scale|
+    (default |want|), over the elements."""
+    w = (want if scale is None else scale).float().abs().clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(w)) - 7)
+    return ((got.float() - want.float()).abs() / ulp).max().item()
+
+
+def dx_term_scale(x, gammas, mean, rstd, g):
+    """rstd (|g_hat| + |mean(g_hat)| + |x_hat mean(g_hat x_hat)|): the
+    magnitude of the terms whose sum is the backward's dx, element by
+    element (the plain version's arithmetic)."""
+    mean, rstd = mean[..., None, None], rstd[..., None, None]
+    xhat = (x.float() - mean) * rstd
+    ghat = g.float() * sum((gm.float() for gm in gammas), 1.0)
+    m1 = ghat.mean(dim=(2, 3), keepdim=True)
+    m2 = (ghat * xhat).mean(dim=(2, 3), keepdim=True)
+    return rstd * (ghat.abs() + m1.abs() + (xhat * m2).abs())
+
+
 def modulation_bound_ms(shape, n_pairs, elem_bytes):
     """Least time for one call: x, each gamma/beta read once and out
     written once at HBM rate, against ~(7 + 2 n_pairs) fp32 flops per
@@ -229,13 +289,27 @@ def modulation_bound_ms(shape, n_pairs, elem_bytes):
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
+def modulation_bwd_bound_ms(shape, n_pairs, elem_bytes):
+    """Least time for one backward call: x, g and each gamma read once
+    and dx and dgamma written once at HBM rate, against ~(10 + n_pairs)
+    fp32 flops per element (x_hat, g_hat, two products, two sums, dx) at
+    the fp32 peak; the larger of the two."""
+    numel = int(np.prod(shape))
+    bytes_ms = (4 + n_pairs) * numel * elem_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = (10 + n_pairs) * numel / FP32_FLOPS * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
 def check_modulation(spade_mod):
-    """Phase 3: kernel vs plain at every main-path shape, n_pairs 1 and 2,
-    fp32 and bf16; times at n_pairs 1 fp32 (the main path's case)."""
+    """Phase 3: forward and backward kernels vs their plain versions at
+    every main-path shape, n_pairs 1 and 2, fp32 and bf16; times at
+    n_pairs 1 (the main paths' case), fp32 and bf16. Returns the forward
+    rows, the backward rows, and the forward's and the backward's fp32
+    errors."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    rows, max_err = [], 0.0
+    rows, bwd_rows, max_err, bwd_err = [], [], 0.0, 0.0
     for shape, calls in MODULATION_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             for n_pairs in (1, 2):
@@ -244,32 +318,73 @@ def check_modulation(spade_mod):
                       for _ in range(n_pairs)]
                 bs = [(torch.randn(shape, generator=gen, device="cuda") * 0.3).to(dtype)
                       for _ in range(n_pairs)]
-                got = spade_mod.spade_modulation(x, gs, bs)
-                want = spade_mod.spade_modulation_plain(x, gs, bs)
+                g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                name = f"{str(dtype).split('.')[-1]} n_pairs={n_pairs}"
+                got, mean, rstd = spade_mod._launch_fwd(x, gs, bs, 1e-5)
+                mean_p, rstd_p = spade_mod.spade_modulation_stats_plain(x)
                 torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
+                stats_err = max(((mean - mean_p).abs().max() / mean_p.abs().max()).item(),
+                                ((rstd - rstd_p).abs().max() / rstd_p.abs().max()).item())
                 if dtype == torch.float32:
+                    want = spade_mod.spade_modulation_plain(x, gs, bs)
+                    err = (got - want).abs().max().item()
                     max_err = max(max_err, err)
                     ok = err <= TOL_FP32
                 else:
-                    err = err / want.float().abs().max().item()
-                    ok = err <= TOL_BF16_REL
+                    want = spade_mod.spade_modulation_plain(x, gs, bs, stats=(mean, rstd))
+                    err = bf16_ulps(got, want)
+                    ok = err <= TOL_BF16_ULPS
+                if not ok or not stats_err <= TOL_STATS_REL:
+                    raise AssertionError(f"spade_modulation {shape} {name}: error "
+                                         f"{err}, statistics {stats_err}")
+                dx, dgamma = spade_mod._launch_bwd(x, gs, mean_p, rstd_p, g)
+                dx_p, dgamma_p = spade_mod.spade_modulation_bwd_plain(
+                    x, gs, mean_p, rstd_p, g)
+                torch.cuda.synchronize()
+                if dtype == torch.float32:
+                    errs = (((dx - dx_p).abs().max() / dx_p.abs().max()).item(),
+                            ((dgamma - dgamma_p).abs().max() / dgamma_p.abs().max()).item())
+                    bwd_err = max(bwd_err, errs[0], errs[1])
+                    ok = errs[0] <= TOL_BWD_DX_REL and errs[1] <= TOL_BWD_DGAMMA_REL
+                    bounds = [TOL_BWD_DX_REL, TOL_BWD_DGAMMA_REL]
+                else:
+                    errs = (bf16_ulps(dx, dx_p, dx_term_scale(x, gs, mean_p, rstd_p, g)),
+                            bf16_ulps(dgamma, dgamma_p))
+                    ok = max(errs) <= TOL_BF16_ULPS
+                    bounds = [TOL_BF16_ULPS, TOL_BF16_ULPS]
+                    errs = errs + (bf16_ulps(dx, dx_p),)  # of dx's own value
+                phase("kernel_check", name="spade_modulation", shape=list(shape),
+                      case=name, forward_error=err,
+                      forward_bound=TOL_FP32 if dtype == torch.float32 else TOL_BF16_ULPS,
+                      statistics_error=stats_err, backward_errors=list(errs),
+                      backward_bounds=bounds)
                 if not ok:
-                    raise AssertionError(f"spade_modulation {shape} {dtype} "
-                                         f"n_pairs={n_pairs}: error {err}")
-                if dtype == torch.float32 and n_pairs == 1:
-                    bound, bound_by = modulation_bound_ms(shape, 1, 4)
-                    row = {"shape": list(shape), "calls": calls,
-                           "ms": time_ms(lambda: spade_mod.spade_modulation(x, gs, bs)),
+                    raise AssertionError(f"spade_modulation_bwd {shape} {name}: "
+                                         f"errors {errs}, bounds {bounds}")
+                if n_pairs == 1:
+                    size = x.element_size()
+                    bound, bound_by = modulation_bound_ms(shape, 1, size)
+                    row = {"shape": list(shape), "calls": calls, "dtype": name,
+                           "ms": time_ms(lambda: spade_mod._launch_fwd(x, gs, bs, 1e-5)),
                            "plain_ms": time_ms(lambda: spade_mod.spade_modulation_plain(x, gs, bs)),
                            "bound_ms": bound, "bound_by": bound_by,
                            "max_abs_err": err}
                     row["bound_share"] = row["bound_ms"] / row["ms"]
                     rows.append(row)
                     phase("kernel", name="spade_modulation", **row)
-                del x, gs, bs, got, want
+                    bound, bound_by = modulation_bwd_bound_ms(shape, 1, size)
+                    row = {"shape": list(shape), "calls": calls, "dtype": name,
+                           "ms": time_ms(lambda: spade_mod._launch_bwd(x, gs, mean_p, rstd_p, g)),
+                           "plain_ms": time_ms(lambda: spade_mod.spade_modulation_bwd_plain(
+                               x, gs, mean_p, rstd_p, g)),
+                           "bound_ms": bound, "bound_by": bound_by,
+                           "errors": list(errs)}
+                    row["bound_share"] = row["bound_ms"] / row["ms"]
+                    bwd_rows.append(row)
+                    phase("kernel", name="spade_modulation_bwd", **row)
+                del x, gs, bs, g, got, want, dx, dgamma, dx_p, dgamma_p
     torch.cuda.empty_cache()
-    return rows, max_err
+    return rows, bwd_rows, max_err, bwd_err
 
 
 def resample_bound_ms(shape, elem_bytes, flow_bytes=4):
@@ -401,10 +516,10 @@ def one_hot_request(rng, seed):
     return ServeRequest({"label": label}, seed=seed)
 
 
-def set_fused(engine, value):
+def set_fused(net, value):
     from imaginaire_tpu_torch.layers.activation_norm import SpatiallyAdaptiveNorm
 
-    for m in engine.trainer.net_G.modules():
+    for m in net.modules():
         if isinstance(m, SpatiallyAdaptiveNorm):
             m.fused_modulation = value
 
@@ -457,11 +572,11 @@ def main_path(spade_mod):
         + [np.zeros_like(chunk[0].data["label"])])}
     seeds = [r.seed for r in chunk] + [None]
     fused = engine._run(host, seeds)
-    set_fused(engine, "none")
+    set_fused(engine.trainer.net_G, "none")
     try:
         unfused = engine._run(host, seeds)
     finally:
-        set_fused(engine, "auto")
+        set_fused(engine.trainer.net_G, "auto")
     fused_err = float(np.abs(fused - unfused).max())
     alone = engine._run({"label": chunk[1].data["label"]}, [chunk[1].seed])
     lane_err = float(np.abs(alone[0] - fused[1]).max())
@@ -481,6 +596,188 @@ def main_path(spade_mod):
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
            "forward": breakdown}
     phase("main_path", **row)
+    return row
+
+
+def train_batch(gen, batch=TRAIN_BATCH):
+    """Seeded one-hot labels (185 channels) and images in [-1, 1], made
+    on the card."""
+    idx = torch.randint(0, NUM_LABELS, (batch, 256, 256), generator=gen,
+                        device="cuda")
+    label = torch.nn.functional.one_hot(idx, NUM_LABELS).permute(0, 3, 1, 2)
+    images = torch.rand((batch, 3, 256, 256), generator=gen, device="cuda") * 2 - 1
+    return {"label": label.float().contiguous(), "images": images}
+
+
+def train_config(instance=True):
+    from imaginaire_tpu_torch.config import Config
+
+    cfg = Config(CONFIG)
+    if instance:
+        cfg.gen.activation_norm_params.activation_norm_type = "instance"
+    # no VGG19 weights in the repository: the perceptual loss draws them
+    cfg.trainer.perceptual_loss.allow_random_init = True
+    return cfg
+
+
+def dg_step(trainer, data):
+    """One D step then one G step; returns both steps' losses as floats."""
+    d = trainer.dis_update(data)
+    g = trainer.gen_update(data)
+    return {**{f"D/{k}": float(v) for k, v in d.items()},
+            **{f"G/{k}": float(v) for k, v in g.items()}}
+
+
+def _snapshot(trainer):
+    nets = (trainer.net_G, trainer.net_D)
+    return ([{k: v.clone() for k, v in n.state_dict().items()} for n in nets],
+            [([t.clone() for t in o.state_tensors()], o.count)
+             for o in (trainer.opt_G, trainer.opt_D)],
+            {k: v.clone() for k, v in trainer.ema_G.items()},
+            trainer.num_ema_updates)
+
+
+def _restore(trainer, snap):
+    nets, opts, ema, n_ema = snap
+    for net, sd in zip((trainer.net_G, trainer.net_D), nets):
+        net.load_state_dict(sd)
+    with torch.no_grad():
+        for opt, (tensors, count) in zip((trainer.opt_G, trainer.opt_D), opts):
+            for t, v in zip(opt.state_tensors(), tensors):
+                t.copy_(v)
+            opt.count = count
+        for k, v in ema.items():
+            trainer.ema_G[k].copy_(v)
+    trainer.num_ema_updates = n_ema
+
+
+def spade_train_path(spade_mod):
+    """Phase 7: SPADE training, the D+G step, at COCO-Stuff width on the
+    card (batch 4, 256x256, bf16 with fp32 masters, remat blocks)."""
+    from imaginaire_tpu_torch.trainers.spade import Trainer
+
+    torch.backends.cudnn.allow_tf32 = True  # training runs the defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(train_config(), device="cuda", train=True)
+    trainer.init_state(seed=0)
+    setup_s = time.perf_counter() - t0
+    if trainer.compute_dtype != torch.bfloat16:
+        raise AssertionError(f"compute dtype {trainer.compute_dtype}, expected bf16")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    data = train_batch(gen)
+    watch = {"G": next(p for n, p in trainer.net_G.named_parameters()
+                       if n.endswith("head_0.conv.weight")),
+             "D": next(p for n, p in trainer.net_D.named_parameters()
+                       if n.endswith("layer0.conv.weight"))}
+    watch_u = {"G": trainer.net_G.spade_generator.head_0.conv.u,
+               "D": trainer.net_D.patch_d_0.layer0.conv.u}
+    before = {k: v.detach().clone() for k, v in {**watch, **{
+        f"u_{k}": v for k, v in watch_u.items()}}.items()}
+
+    spade_mod.launches = spade_mod.bwd_launches = 0
+    step_ms, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(dg_step(trainer, data))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {"forward": spade_mod.launches, "backward": spade_mod.bwd_launches}
+    expected = {"forward": TRAIN_STEPS * TRAIN_FWD_LAUNCHES,
+                "backward": TRAIN_STEPS * TRAIN_BWD_LAUNCHES}
+    if launches != expected:
+        raise AssertionError(f"training launches {launches}, expected {expected}")
+    bad = [(i, k, v) for i, step in enumerate(losses) for k, v in step.items()
+           if not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"non-finite training losses {bad[:5]}")
+    after = {**watch, **{f"u_{k}": v for k, v in watch_u.items()}}
+    moved = {k: (after[k] - before[k]).abs().max().item() for k in before}
+    if not all(v > 0 for v in moved.values()):
+        raise AssertionError(f"parameters or u did not move: {moved}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    median_ms = float(np.median(step_ms))
+
+    def one_step():
+        dg_step(trainer, data)
+        torch.cuda.synchronize()
+
+    breakdown = profile_call(one_step, repeats=2)
+
+    # in situ: one fp32 D+G step (TF32 off) through the kernels against the
+    # same step through the plain composition, from the same state
+    torch.backends.cudnn.allow_tf32 = False
+    trainer.compute_dtype = torch.float32
+    noise = {"D": torch.randn((TRAIN_BATCH, trainer.net_G.style_dims),
+                              generator=gen, device="cuda"),
+             "G": torch.randn((TRAIN_BATCH, trainer.net_G.style_dims),
+                              generator=gen, device="cuda")}
+    snap = _snapshot(trainer)
+
+    def fp32_step():
+        d = trainer.dis_update(data, noise=noise["D"])
+        g = trainer.gen_update(data, noise=noise["G"])
+        return {**{f"D/{k}": float(v) for k, v in d.items()},
+                **{f"G/{k}": float(v) for k, v in g.items()}}
+
+    spade_mod.launches = spade_mod.bwd_launches = 0
+    fused = fp32_step()
+    fused_launches = {"forward": spade_mod.launches, "backward": spade_mod.bwd_launches}
+    _restore(trainer, snap)
+    set_fused(trainer.net_G, "none")
+    try:
+        spade_mod.launches = spade_mod.bwd_launches = 0
+        plain = fp32_step()
+        plain_launches = {"forward": spade_mod.launches,
+                          "backward": spade_mod.bwd_launches}
+    finally:
+        set_fused(trainer.net_G, "auto")
+        trainer.compute_dtype = torch.bfloat16
+        torch.backends.cudnn.allow_tf32 = True
+    rel = {k: abs(fused[k] - plain[k]) / max(abs(plain[k]), 1e-30)
+           for k in plain if not k.endswith("_acc")}
+    worst = max(rel, key=rel.get)
+    if fused_launches != {"forward": TRAIN_FWD_LAUNCHES,
+                          "backward": TRAIN_BWD_LAUNCHES} \
+            or plain_launches != {"forward": 0, "backward": 0} \
+            or rel[worst] > TOL_TRAIN_REL:
+        raise AssertionError(
+            f"fp32 step through the kernels vs the composition: {worst} "
+            f"differs by {rel[worst]} (tol {TOL_TRAIN_REL}); launches "
+            f"{fused_launches} / {plain_launches}")
+    del trainer, snap
+    torch.cuda.empty_cache()
+
+    # the unmodified config: sync_batch base norms, BatchNorm batch
+    # statistics, no modulation kernel
+    trainer = Trainer(train_config(instance=False), device="cuda", train=True)
+    trainer.init_state(seed=1)
+    spade_mod.launches = spade_mod.bwd_launches = 0
+    bn = trainer.net_G.spade_generator.head_1.conv_0.norm.BatchNorm_0
+    bn_before = bn.mean.clone()
+    sync_losses = [dg_step(trainer, data) for _ in range(2)]
+    sync_launches = spade_mod.launches + spade_mod.bwd_launches
+    if sync_launches or not all(np.isfinite(v) for step in sync_losses
+                                for v in step.values()) \
+            or torch.equal(bn.mean, bn_before):
+        raise AssertionError(f"unmodified config: losses {sync_losses}, "
+                             f"modulation launches {sync_launches}, running "
+                             f"mean moved {not torch.equal(bn.mean, bn_before)}")
+    del trainer
+    torch.cuda.empty_cache()
+    row = {"setup_s": setup_s, "batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
+           "step_ms": step_ms, "median_step_ms": median_ms,
+           "images_per_s": TRAIN_BATCH / (median_ms / 1e3),
+           "peak_mem_gib": peak, "launches": launches,
+           "launches_per_step": {"forward": TRAIN_FWD_LAUNCHES,
+                                 "backward": TRAIN_BWD_LAUNCHES},
+           "first_losses": losses[0], "last_losses": losses[-1],
+           "moved": moved, "fp32_fused": fused, "fp32_plain": plain,
+           "fp32_worst_rel": [worst, rel[worst]],
+           "sync_batch_losses": sync_losses, "step": breakdown}
+    phase("spade_train_path", **row)
     return row
 
 
@@ -883,14 +1180,16 @@ def teacher_path(corr, cn, rs):
     return row
 
 
-_FAMILIES = (("spade_modulation", ("spade_modulation",)),
+_FAMILIES = (("spade_modulation_bwd", ("spade_modulation_bwd",)),
+             ("spade_modulation", ("spade_modulation",)),
              ("resample2d", ("resample2d",)),
              ("correlation", ("correlation",)),
              ("channelnorm", ("channelnorm",)),
              ("copies", ("Memcpy", "Memset")),
              ("conv", ("conv", "xmma", "cudnn", "implicit", "winograd", "fprop",
                        "cutlass", "sm90")),
-             ("gemv/gemm", ("gemv", "gemm", "dot")))
+             ("gemv/gemm", ("gemv", "gemm", "dot")),
+             ("elementwise/reduce", ("elementwise", "reduce", "foreach")))
 
 
 def profile_call(fn, repeats=5):
@@ -921,12 +1220,18 @@ def profile_call(fn, repeats=5):
         families[family] = families.get(family, 0.0) + ms
     device_ms = sum(ms for ms, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
+    host = sorted((evt for evt in prof.key_averages()
+                   if evt.device_type == DeviceType.CPU),
+                  key=lambda evt: -evt.self_cpu_time_total)[:10]
     return {"wall_ms": walls, "profiled_wall_ms": wall_ms,
             "device_ms": device_ms if kernels else "not measured",
             "idle_share": 1 - device_ms / wall_ms if kernels else "not measured",
             "families_ms": families,
             "top_kernels": [{"name": n[:120], "ms": ms, "count": c}
-                            for n, (ms, c) in top]}
+                            for n, (ms, c) in top],
+            "top_host_ops": [{"name": evt.key[:80],
+                              "self_ms": evt.self_cpu_time_total / 1e3,
+                              "count": evt.count} for evt in host]}
 
 
 def main():
@@ -959,7 +1264,7 @@ def main():
     phase("build", seconds=build_s, libraries=[str(p) for p in libs.values()],
           ptxas=ptxas)
 
-    rows, max_err = check_modulation(spade_mod)
+    rows, bwd_rows, max_err, bwd_err = check_modulation(spade_mod)
     rs_rows, rs_err = check_resample(rs)
     corr_rows, corr_err = check_correlation(corr)
     cn_rows, cn_err = check_channelnorm(cn)
@@ -967,9 +1272,17 @@ def main():
     v2v = vid2vid_path(rs, spade_mod)
     rs_rows[0]["flows"]["vid2vid"] = v2v["resample2d_path_flow"]
     teacher = teacher_path(corr, cn, rs)
+    train = spade_train_path(spade_mod)
 
-    per_forward = {key: sum(r[key] * r["calls"] for r in rows)
-                   for key in ("ms", "plain_ms", "bound_ms")}
+    def per_call_set(table, dtype):
+        sel = [r for r in table if r["dtype"].startswith(dtype)]
+        out = {key: sum(r[key] * r["calls"] for r in sel)
+               for key in ("ms", "plain_ms", "bound_ms")}
+        out["bound_by"] = max(sel, key=lambda r: r["bound_ms"] * r["calls"])["bound_by"]
+        return out
+
+    per_forward = per_call_set(rows, "float32")
+    per_backward = per_call_set(bwd_rows, "bfloat16")
     cn_per_pair = [r for r in cn_rows if r["shape"][0] == 1]
     kernels = [{
         "name": "spade_modulation", "route": "cuda",
@@ -977,10 +1290,15 @@ def main():
         "replaces": "imaginaire_tpu/ops/pallas/spade_modulation_kernel.py:87",
         "launches": main["launches"], "max_abs_err": max_err,
         # the 19 calls of one bs-4 generator forward, fp32, n_pairs 1
-        "ms": per_forward["ms"], "plain_ms": per_forward["plain_ms"],
-        "bound_ms": per_forward["bound_ms"],
-        "bound_by": max(rows, key=lambda r: r["bound_ms"] * r["calls"])["bound_by"],
-        "library_ms": None}, {
+        **per_forward, "library_ms": None}, {
+        "name": "spade_modulation_bwd", "route": "cuda",
+        "source": "imaginaire_tpu_torch/csrc/spade_modulation.cu",
+        "replaces": "imaginaire_tpu/ops/spade_modulation.py:119",
+        "launches": train["launches"]["backward"], "max_abs_err": bwd_err,
+        # the 19 calls of one G step's backward, bf16 (the training path's
+        # type), n_pairs 1; max_abs_err is the fp32 checks' worst error
+        # over the plain output's max magnitude
+        **per_backward, "library_ms": None}, {
         "name": "resample2d", "route": "cuda",
         "source": "imaginaire_tpu_torch/csrc/resample2d.cu",
         "replaces": "imaginaire_tpu/ops/pallas/resample2d_kernel.py:87",
@@ -1011,6 +1329,7 @@ def main():
              "modulation": rows, "resample2d": rs_rows,
              "correlation": corr_rows, "channelnorm": cn_rows,
              "main_path": main, "vid2vid_path": v2v, "teacher_path": teacher,
+             "modulation_bwd": bwd_rows, "spade_train_path": train,
              "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -16,7 +16,15 @@ parameter or buffer of the same path:
 - ``scale``, ``bias``, ``u``, ``mean`` and ``var`` keep their names.
 
 It raises on a leaf with no counterpart, on a shape mismatch, and on any
-parameter or buffer of the module that no leaf filled.
+parameter or buffer of the module that no leaf filled. The same mapping
+carries the JAX discriminator's ``params``/``spectral`` trees and the
+VGG19 ``params`` of the perceptual loss (into ``PerceptualLoss.module``).
+
+``load_adam_state(opt, module, mu, nu, count)`` carries optax Adam's
+moments (trees shaped like the module's ``params``) and step count into
+the port's ``Adam`` over ``module.parameters()``, so that both packages
+start a step from the same state; ``to_port_layout`` maps any such tree
+(gradients too) onto the port's names and layouts.
 """
 
 from __future__ import annotations
@@ -98,3 +106,36 @@ def load_flax_variables(module, variables):
         raise KeyError(f"the flax variables left {len(left)} port tensors "
                        f"unset, e.g. {left[:5]}")
     return module
+
+
+def to_port_layout(module, tree):
+    """{port parameter/buffer name: numpy array in torch layout} for a
+    flax tree shaped like one of ``module``'s collections (its params,
+    their gradients, or Adam moments)."""
+    out = {}
+    for path, value in _flatten(tree):
+        owner, name, _ = _target(module, path)
+        out[name] = _to_torch_layout(path, value, owner)
+    return out
+
+
+@torch.no_grad()
+def load_adam_state(opt, module, mu, nu, count):
+    """Copy optax Adam's ``mu``/``nu`` trees and ``count`` into ``opt``
+    (the port's ``Adam`` over ``module.parameters()``); returns opt."""
+    index = {name: i for i, (name, _) in enumerate(module.named_parameters())}
+    for tree, dest in ((mu, opt.mu), (nu, opt.nu)):
+        filled = to_port_layout(module, tree)
+        for name, value in filled.items():
+            slot = dest[index[name]]
+            if tuple(value.shape) != tuple(slot.shape):
+                raise ValueError(f"adam state of {name}: shape "
+                                 f"{tuple(value.shape)} does not fit "
+                                 f"{tuple(slot.shape)}")
+            slot.copy_(torch.from_numpy(value).to(device=slot.device,
+                                                  dtype=slot.dtype))
+        if len(filled) != len(index):
+            raise KeyError(f"the adam state left {len(index) - len(filled)} "
+                           f"port parameters unset")
+    opt.count = int(np.asarray(count))
+    return opt

@@ -65,6 +65,14 @@
 // grid) is computed by the wrapper (imaginaire_tpu_torch/ops/correlation.py,
 // tile_plan) and passed in; this file checks it for consistency. All
 // device-memory offsets are 64-bit.
+//
+// The direct path. A tile whose columns do not fit shared memory even
+// with one vertical displacement and the smallest ring (fp32 from
+// stride2 65, where a tile is 1040 columns and its window several
+// thousand) takes correlation_direct_fwd instead: one thread an output,
+// a loop over the channels with fp32 fused multiply-adds, no staging.
+// tile_plan chooses it by shape. It answers what the JAX package's
+// public op answers at those strides, without the tiled path's speed.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -434,7 +442,69 @@ static bool plan_ok(const Plan& p, long long height, long long width, int n_d,
   return tile && smem && covers;
 }
 
+// One thread an output (b, dyi * n_d + dxi, y, x): the sum over the
+// channels of x1 * x2 at the displaced pixel, zero outside the frame,
+// divided by C. Consecutive threads take consecutive x.
+template <typename T>
+__global__ void __launch_bounds__(256)
+correlation_direct_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
+                          T* __restrict__ out, long long channels,
+                          long long height, long long width, int n_d,
+                          int max_disp, int stride2, long long total) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const long long x = idx % width;
+  long long rest = idx / width;
+  const long long y = rest % height;
+  rest /= height;
+  const int d = (int)(rest % ((long long)n_d * n_d));
+  const long long b = rest / ((long long)n_d * n_d);
+  const long long yy = y - max_disp + (long long)(d / n_d) * stride2;
+  const long long xx = x - max_disp + (long long)(d % n_d) * stride2;
+  float acc = 0.f;
+  if (yy >= 0 && yy < height && xx >= 0 && xx < width) {
+    const long long hw = height * width;
+    const T* p1 = x1 + b * channels * hw + y * width + x;
+    const T* p2 = x2 + b * channels * hw + yy * width + xx;
+    for (long long c = 0; c < channels; ++c) {
+      acc = fmaf(smem_f(p1 + c * hw), smem_f(p2 + c * hw), acc);
+    }
+  }
+  store_f(out + idx, acc / (float)channels);
+}
+
 extern "C" {
+
+// The direct path (see the head of this file): x1, x2, out and dtype as
+// correlation_fwd's; one thread an output. Launches on `stream` and
+// returns the CUDA error code of the launch; it does not synchronise.
+int correlation_direct_fwd(const void* x1, const void* x2, void* out,
+                           long long batch, long long channels,
+                           long long height, long long width, int max_disp,
+                           int stride2, int dtype, void* stream) {
+  if (batch < 1 || channels < 1 || height < 1 || width < 1 || max_disp < 0 ||
+      stride2 < 1 || (dtype != 0 && dtype != 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int n_d = 2 * max_disp / stride2 + 1;
+  const long long total = batch * n_d * n_d * height * width;
+  const long long blocks = (total + 255) / 256;
+  if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    correlation_direct_kernel<float><<<(unsigned)blocks, 256, 0, s>>>(
+        static_cast<const float*>(x1), static_cast<const float*>(x2),
+        static_cast<float*>(out), channels, height, width, n_d, max_disp,
+        stride2, total);
+  } else {
+    correlation_direct_kernel<__nv_bfloat16><<<(unsigned)blocks, 256, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x1),
+        static_cast<const __nv_bfloat16*>(x2),
+        static_cast<__nv_bfloat16*>(out), channels, height, width, n_d,
+        max_disp, stride2, total);
+  }
+  return (int)cudaGetLastError();
+}
 
 // x1, x2: NCHW-contiguous (batch, channels, height, width); out:
 // NCHW-contiguous (batch, n_d * n_d, height, width) with

@@ -5,8 +5,9 @@ Port of ``imaginaire_tpu/layers/activation_norm.py``. Every norm takes
 channel counts (torch has no lazy shapes): ``num_features`` is x's
 channel count and the conditional norms take ``cond_dims``, the channel
 count of each conditioning input, as the reference PyTorch project's
-norms do. Inference forms only: BatchNorm normalizes with its running
-statistics and refuses training mode until the training slice.
+norms do. BatchNorm normalizes with the batch statistics in training
+mode (the JAX package's ``sync_batch`` on one card) and with its running
+statistics in eval mode.
 
 Submodule names mirror the JAX package's parameter tree (``mlp_0``,
 ``gamma_0``, ``fc``...); a base norm that flax names inline
@@ -23,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from imaginaire_tpu_torch.layers.state import cast_param
 from imaginaire_tpu_torch.ops.spade_modulation import spade_modulation
 from imaginaire_tpu_torch.utils.misc import resize_bilinear, resize_nearest
 
@@ -39,6 +41,19 @@ def _fusable_modulation(impl, base_norm, x, pairs):
     if base_norm != "instance" or x.dim() != 4 or not pairs:
         return False
     return all(g.shape == x.shape == b.shape for g, b in pairs)
+
+
+def default_fused_modulation(anp, remat):
+    """The generator's default for the epilogue-fusion knob, given its
+    remat policy: under an enabled policy ``fused_modulation`` defaults
+    to ``none``, as the JAX package measured fusion and block remat to
+    be alternatives; a value in the config always wins."""
+    from imaginaire_tpu_torch.optim.remat import resolve_policy
+
+    anp = dict(anp)
+    if "fused_modulation" not in anp and resolve_policy(remat, where="gen.remat"):
+        anp["fused_modulation"] = "none"
+    return anp
 
 
 def _resize(x, hw, method):
@@ -77,19 +92,28 @@ class InstanceNorm(nn.Module):
         var = (x32 - mean).square().mean(dim=axes, keepdim=True)
         y = ((x32 - mean) * torch.reciprocal(torch.sqrt(var + self.eps))).to(x.dtype)
         if self.affine:
-            y = (y * _channel_view(self.scale, x.dim()).to(y.dtype)
-                 + _channel_view(self.bias, x.dim()).to(y.dtype))
+            y = (y * _channel_view(cast_param(self, self.scale), x.dim()).to(y.dtype)
+                 + _channel_view(cast_param(self, self.bias), x.dim()).to(y.dtype))
         return y
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm at inference: the running ``mean``/``var`` (the JAX
-    package's ``batch_stats``), eps 1e-5. Batch statistics (training
-    mode) come with the training slice."""
+    """flax ``nn.BatchNorm`` (momentum 0.9, eps 1e-5), the JAX package's
+    ``batch``/``sync_batch`` norm on one card. Eval mode normalizes with
+    the running ``mean``/``var`` (``batch_stats``). Training mode
+    normalizes with the batch statistics, computed in fp32 as flax does
+    (``var = max(0, E[x^2] - E[x]^2)``, the biased variance), and
+    returns x's type; the running statistics move towards them,
+    ``0.9 * old + 0.1 * batch``, with the biased variance (not the
+    unbiased one that ``F.batch_norm`` would store), and only in the
+    step of the network that owns them (``update_state``)."""
 
-    def __init__(self, num_features, affine=True, eps=1e-5):
+    update_state = False  # move the running statistics (layers/state.py)
+
+    def __init__(self, num_features, affine=True, eps=1e-5, momentum=0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         if affine:
             self.scale = nn.Parameter(torch.ones(num_features))
             self.bias = nn.Parameter(torch.zeros(num_features))
@@ -100,12 +124,29 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(num_features))
 
     def forward(self, x, *cond):
-        if self.training:
-            raise NotImplementedError(
-                "BatchNorm batch statistics come with the training slice "
-                "(ROADMAP.md); call .eval() for inference")
-        return F.batch_norm(x, self.mean, self.var, self.scale, self.bias,
-                            training=False, eps=self.eps)
+        scale, bias = cast_param(self, self.scale), cast_param(self, self.bias)
+        if not self.training:
+            return F.batch_norm(x, self.mean, self.var, scale, bias,
+                                training=False, eps=self.eps)
+        axes = (0,) + tuple(range(2, x.dim()))
+        x32 = x.float()
+        mean = x32.mean(dim=axes)
+        var = torch.clamp_min(x32.square().mean(dim=axes) - mean.square(), 0.0)
+        if self.update_state:
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+                self.var.copy_(m * self.var + (1.0 - m) * var)
+        mul = torch.rsqrt(var + self.eps)
+        out_dtype = x.dtype
+        if scale is not None:
+            mul = mul * scale.float()
+            out_dtype = torch.promote_types(out_dtype, scale.dtype)
+        y = (x32 - _channel_view(mean, x.dim())) * _channel_view(mul, x.dim())
+        if bias is not None:
+            y = y + _channel_view(bias.float(), x.dim())
+            out_dtype = torch.promote_types(out_dtype, bias.dtype)
+        return y.to(out_dtype)
 
 
 def _base_norm(kind, num_features, affine):

@@ -20,6 +20,7 @@ from imaginaire_tpu_torch.layers.activation_norm import (
     get_activation_norm_layer,
 )
 from imaginaire_tpu_torch.layers.nonlinearity import apply_nonlinearity, needs_prelu_param
+from imaginaire_tpu_torch.layers.state import cast_param
 from imaginaire_tpu_torch.layers.weight_norm import init_u, spectral_normalize
 
 _PAD_MODES = {"reflect": "reflect", "replicate": "replicate", "circular": "circular"}
@@ -55,7 +56,11 @@ def _weight_norm_u(module, weight_norm_type, out_features):
 
 
 class _WeightNormedConv(nn.Module):
-    """2-D conv whose kernel passes through the configured weight norm."""
+    """2-D conv whose kernel passes through the configured weight norm.
+    The kernel is rounded to the step's parameter dtype, normalized, and
+    cast to x's type, as the JAX layer does."""
+
+    update_state = False  # advance u in a training forward (layers/state.py)
 
     def __init__(self, in_channels, out_channels, kernel_size, stride,
                  padding, dilation, groups=1, bias=True, padding_mode="zeros",
@@ -76,11 +81,12 @@ class _WeightNormedConv(nn.Module):
         self.sn_eps = dict(weight_norm_params or {}).get("eps", 1e-12)
 
     def forward(self, x):
-        w = self.weight
+        w = cast_param(self, self.weight)
         if self.spectral:
-            w = spectral_normalize(w, self.u, eps=self.sn_eps)
+            w = spectral_normalize(w, self.u, eps=self.sn_eps,
+                                   update=self.training and self.update_state)
         w = w.to(x.dtype)
-        bias = None if self.bias is None else self.bias.to(x.dtype)
+        bias = None if self.bias is None else cast_param(self, self.bias).to(x.dtype)
         if self.padding_mode == "zeros":
             return F.conv2d(x, w, bias, self.stride, self.padding,
                             self.dilation, self.groups)
@@ -132,13 +138,16 @@ class Conv2dBlock(nn.Module):
                 if self.norm is not None:
                     x = self.norm(x, *(cond_inputs if self.conditional else ()))
             else:
-                x = apply_nonlinearity(x, self.nonlinearity,
-                                       getattr(self, "prelu_alpha", None))
+                x = apply_nonlinearity(
+                    x, self.nonlinearity,
+                    cast_param(self, getattr(self, "prelu_alpha", None)))
         return x
 
 
 class LinearBlock(nn.Module):
     """Dense + norm + nonlinearity with the same order DSL."""
+
+    update_state = False  # advance u in a training forward (layers/state.py)
 
     def __init__(self, in_features, out_features, bias=True,
                  weight_norm_type="", activation_norm_type="",
@@ -165,15 +174,18 @@ class LinearBlock(nn.Module):
     def forward(self, x, *cond_inputs):
         for op in self.order:
             if op == "C":
-                w = self.weight
+                w = cast_param(self, self.weight)
                 if self.spectral:
-                    w = spectral_normalize(w, self.u)
-                bias = None if self.bias is None else self.bias.to(x.dtype)
+                    w = spectral_normalize(
+                        w, self.u, update=self.training and self.update_state)
+                bias = (None if self.bias is None
+                        else cast_param(self, self.bias).to(x.dtype))
                 x = F.linear(x, w.to(x.dtype), bias)
             elif op == "N":
                 if self.norm is not None:
                     x = self.norm(x, *(cond_inputs if self.conditional else ()))
             else:
-                x = apply_nonlinearity(x, self.nonlinearity,
-                                       getattr(self, "prelu_alpha", None))
+                x = apply_nonlinearity(
+                    x, self.nonlinearity,
+                    cast_param(self, getattr(self, "prelu_alpha", None)))
         return x

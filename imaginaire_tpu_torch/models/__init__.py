@@ -1,1 +1,1 @@
-"""Generators and (later) discriminators of the port."""
+"""Generators and discriminators of the port."""

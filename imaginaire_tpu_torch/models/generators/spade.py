@@ -23,6 +23,8 @@ from torch import nn
 
 from imaginaire_tpu_torch.config import as_attrdict, cfg_get
 from imaginaire_tpu_torch.layers import Conv2dBlock, LinearBlock, Res2dBlock
+from imaginaire_tpu_torch.layers.activation_norm import default_fused_modulation
+from imaginaire_tpu_torch.optim.remat import call_block, resolve_policy
 from imaginaire_tpu_torch.utils.data import (
     get_crop_or_resize_h_w,
     get_paired_input_image_channel_number,
@@ -75,6 +77,8 @@ class Generator(nn.Module):
         anp.setdefault("activation_norm_type", "sync_batch")
         anp.setdefault("separate_projection", False)
         anp.setdefault("weight_norm_type", weight_norm_type)
+        remat = cfg_get(gen_cfg, "remat", "none")
+        anp = default_fused_modulation(anp, remat)
 
         self.spade_generator = SPADEGenerator(
             num_labels=num_labels,
@@ -90,7 +94,7 @@ class Generator(nn.Module):
             skip_activation_norm=cfg_get(gen_cfg, "skip_activation_norm", True),
             use_posenc_in_input_layer=cfg_get(
                 gen_cfg, "use_posenc_in_input_layer", True),
-            use_style_encoder=self.use_style_encoder)
+            use_style_encoder=self.use_style_encoder, remat=remat)
         if self.use_style:
             se_cfg = dict(cfg_get(gen_cfg, "style_enc", None) or {})
             self.style_encoder = StyleEncoder(
@@ -134,8 +138,9 @@ class SPADEGenerator(nn.Module):
                  num_filters, kernel_size, style_dims, activation_norm_params,
                  weight_norm_type, global_adaptive_norm_type,
                  skip_activation_norm, use_posenc_in_input_layer,
-                 use_style_encoder):
+                 use_style_encoder, remat="none"):
         super().__init__()
+        self.remat = resolve_policy(remat, where="gen.remat")
         size = out_image_small_side_size
         if size not in (256, 512, 1024):
             raise ValueError(f"Generation image size {size} not supported")
@@ -241,34 +246,37 @@ class SPADEGenerator(nn.Module):
             block = getattr(self, f"{mid}_{name}")
             return block(x, z) if self.use_style_encoder else block(x)
 
+        def res_block(name, x):
+            return call_block(getattr(self, name), self.remat, x, seg)
+
         x = self.head_0(in_seg)
         x = mid_block("head_0", x)
-        x = self.head_1(x, seg)
-        x = self.head_2(x, seg)
+        x = res_block("head_1", x)
+        x = res_block("head_2", x)
         x = upsample_2x(x)
-        x = self.up_0a(x, seg)
+        x = res_block("up_0a", x)
         x = mid_block("up_0a", x)
-        x = self.up_0b(x, seg)
+        x = res_block("up_0b", x)
         x = upsample_2x(x)
-        x = self.up_1a(x, seg)
+        x = res_block("up_1a", x)
         x = mid_block("up_1a", x)
-        x = self.up_1b(x, seg)
+        x = res_block("up_1b", x)
         x = upsample_2x(x)
-        x = self.up_2a(x, seg)
+        x = res_block("up_2a", x)
         x = mid_block("up_2a", x)
-        x = self.up_2b(x, seg)
+        x = res_block("up_2b", x)
         x = upsample_2x(x)
 
         size = self.out_image_small_side_size
         if size == 256:
             return {"fake_images": torch.tanh(self.conv_img256(x))}
         x256 = self.conv_img256(x)
-        x = self.up_3b(self.up_3a(x, seg), seg)
+        x = res_block("up_3b", res_block("up_3a", x))
         x = upsample_2x(x)
         x512 = self.conv_img512(x)
         if size == 512:
             return {"fake_images": torch.tanh(upsample_2x(x256) + x512)}
-        x = self.up_4b(self.up_4a(x, seg), seg)
+        x = res_block("up_4b", res_block("up_4a", x))
         x = upsample_2x(x)
         x1024 = self.conv_img1024(x)
         return {"fake_images": torch.tanh(
@@ -295,8 +303,9 @@ class StyleEncoder(nn.Module):
         self.fc_var = LinearBlock(flat, style_dims)
 
     def forward(self, x, eps):
-        """x: (N, C, H, W) images; eps: (N, style_dims) standard normal.
-        Returns (mu, logvar, z = eps * exp(logvar / 2) + mu)."""
+        """x: (N, C, H, W) images; eps: (N, style_dims) standard normal,
+        taken in the type of ``exp(logvar / 2)`` as the JAX encoder draws
+        it. Returns (mu, logvar, z = eps * exp(logvar / 2) + mu)."""
         x = resize_bilinear(x, (256, 256))
         for i in range(6):
             x = getattr(self, f"layer{i + 1}")(x)
@@ -304,5 +313,6 @@ class StyleEncoder(nn.Module):
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
         mu = self.fc_mu(x)
         logvar = self.fc_var(x)
-        z = eps * torch.exp(0.5 * logvar) + mu
+        std = torch.exp(0.5 * logvar)
+        z = eps.to(std.dtype) * std + mu
         return mu, logvar, z

@@ -21,6 +21,9 @@ no backward.
 - ``tile_plan``: the kernel's tiling for one call (tile width, phases,
   channel chunk, pipeline stages, window, shared memory, grid), computed
   here so that the CPU tests reach it; the kernel checks it and runs it.
+  Where a tile cannot be staged in shared memory (fp32 from stride2 65)
+  it plans the kernel's direct path instead: one thread an output, a
+  loop over the channels.
 
 A ``max_displacement`` that ``stride2`` does not divide takes the grid
 of the JAX package's public op: its default ``implementation="auto"``
@@ -59,6 +62,7 @@ MAX_WARPS = 16           # 512 threads, one m16 tile of one row each
 # (stages, channels a stage) of the cp.async ring, in order of preference:
 # the first that fits in shared memory
 RING_CHOICES = ((3, 32), (3, 16), (3, 8), (2, 8))
+DIRECT_THREADS = 256     # threads a block of the direct path
 
 
 def num_displacements(max_displacement, stride2):
@@ -88,11 +92,11 @@ def tile_plan(shape, max_displacement, stride2, elem_bytes=4):
     output columns of its tile, the ``phases`` column phases of its phase
     group (all s2 of them up to stride2 16); each of its warps computes
     one m16 tile of one phase of one row for all its displacements. Every
-    block stages its tile's columns whole. Raises ValueError for what
-    cannot be staged: a grid the card cannot launch, or a tile that does
-    not fit shared memory even with one vertical displacement and a ring
-    of two stages of 8 channels (in fp32 from stride2 65 to 91, as the
-    displacements an axis go from 21 down to 3)."""
+    block stages its tile's columns whole. A tile that does not fit
+    shared memory even with one vertical displacement and a ring of two
+    stages of 8 channels (in fp32 from stride2 65) takes the direct path:
+    ``dict(route="direct", threads, grid_x, n_d)``, one thread an output.
+    Raises ValueError for a grid the card cannot launch."""
     b, c, h, w = shape
     n_d = num_displacements(max_displacement, stride2)
     s2 = stride2
@@ -126,9 +130,7 @@ def tile_plan(shape, max_displacement, stride2, elem_bytes=4):
         if smem <= SMEM_LIMIT:
             break
     else:
-        raise ValueError(f"the correlation kernel cannot stage stride2={s2}: "
-                         f"a tile of {tile_w} columns needs {smem} bytes of "
-                         f"shared memory, more than {SMEM_LIMIT}")
+        return direct_plan(shape, n_d)
     x_tiles = _ceil(w, tile_w)
     y_blocks = s2 * _ceil(_ceil(h, s2), rows)
     dy_groups = _ceil(n_d, dys)
@@ -144,6 +146,16 @@ def tile_plan(shape, max_displacement, stride2, elem_bytes=4):
                 x_tiles=x_tiles, y_blocks=y_blocks, dy_groups=dy_groups,
                 grid_x=grid_x, phases=phases, phase_groups=phase_groups,
                 n_d=n_d)
+
+
+def direct_plan(shape, n_d):
+    """The direct path's launch: one thread an output, 256 a block."""
+    b, _, h, w = shape
+    grid_x = _ceil(b * n_d * n_d * h * w, DIRECT_THREADS)
+    if grid_x >= 2 ** 31:
+        raise ValueError(f"the correlation kernel cannot stage {tuple(shape)}: "
+                         f"its direct grid would be {grid_x} blocks")
+    return dict(route="direct", threads=DIRECT_THREADS, grid_x=grid_x, n_d=n_d)
 
 
 def _check_args(x1, x2, pad_size, kernel_size, max_displacement, stride1,
@@ -209,6 +221,11 @@ def _library():
         ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
         ctypes.c_void_p]
     lib.correlation_fwd.restype = ctypes.c_int
+    lib.correlation_direct_fwd.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.correlation_direct_fwd.restype = ctypes.c_int
     lib.correlation_error_string.argtypes = [ctypes.c_int]
     lib.correlation_error_string.restype = ctypes.c_char_p
     return lib
@@ -238,13 +255,20 @@ def _launch(x1, x2, max_displacement, stride2):
     if x1.numel() == 0:
         return out  # no pixels: nothing to compute
     plan = tile_plan(x1.shape, max_displacement, stride2, x1.element_size())
-    fields = (ctypes.c_int * len(PLAN_FIELDS))(*(plan[k] for k in PLAN_FIELDS))
     lib = _library()
     with torch.cuda.device(x1.device):
         stream = torch.cuda.current_stream(x1.device).cuda_stream
-        err = lib.correlation_fwd(x1.data_ptr(), x2.data_ptr(), out.data_ptr(),
-                                  b, c, h, w, max_displacement, stride2,
-                                  _DTYPE_CODES[x1.dtype], fields, stream)
+        if plan.get("route") == "direct":
+            err = lib.correlation_direct_fwd(
+                x1.data_ptr(), x2.data_ptr(), out.data_ptr(), b, c, h, w,
+                max_displacement, stride2, _DTYPE_CODES[x1.dtype], stream)
+        else:
+            fields = (ctypes.c_int * len(PLAN_FIELDS))(
+                *(plan[k] for k in PLAN_FIELDS))
+            err = lib.correlation_fwd(
+                x1.data_ptr(), x2.data_ptr(), out.data_ptr(), b, c, h, w,
+                max_displacement, stride2, _DTYPE_CODES[x1.dtype], fields,
+                stream)
     if err != 0:
         raise RuntimeError(
             f"correlation kernel launch failed: CUDA error {err} "

@@ -24,6 +24,19 @@ import torch
 import torch.nn.functional as F
 
 
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def apply_imagenet_normalization(x):
+    """[-1, 1] NCHW images -> imagenet-normalized, in x's type; only the
+    first 3 channels are kept."""
+    x = (x[:, :3] + 1.0) * 0.5
+    mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
+    std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
+    return (x - mean.view(1, 3, 1, 1)) / std.view(1, 3, 1, 1)
+
+
 def resolve_device(device=None):
     """The device an entry point runs on: ``cuda`` unless the caller asks
     for another. Raises when the GPU is asked for and absent; there is

@@ -10,9 +10,12 @@ main paths do not take (planes larger than the shared-memory cache,
 ragged planes, the most (gamma, beta) pairs; odd warp sizes, one
 channel, bf16 flows; odd maps, several column tiles and displacement
 groups, p other than 2), and its wrapper's refusals are checked. TF32
-is off. spade_modulation: fp32 tolerance 1e-4 (reduction order), bf16
-2e-2 of the output's magnitude (the plain version rounds between its
-steps, the kernel once). resample2d: fp32 1e-5 (the same fp32 steps),
+is off. spade_modulation: fp32 tolerance 1e-4 (reduction order); bf16
+one ulp element by element against the plain version given the
+kernel's statistics (both round at the same steps), the statistics
+within 1e-5; its backward kernel, through autograd: fp32 dx 1e-5 and
+dgamma 1e-6 of the plain output's magnitude, bf16 one ulp (dx one ulp
+of the magnitude of the terms it sums). resample2d: fp32 1e-5 (the same fp32 steps),
 bf16 1e-2 of the output's magnitude. channelnorm and correlation: fp32
 1e-5 (sums of the same fp32 products in another order, fused
 multiply-adds; correlation's products are 3xTF32 on the tensor cores,
@@ -31,7 +34,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from chip_smoke import at_offset
+from chip_smoke import at_offset, bf16_ulps, dx_term_scale
 from imaginaire_tpu_torch.layers.activation_norm import SpatiallyAdaptiveNorm
 from imaginaire_tpu_torch.ops import build
 from imaginaire_tpu_torch.ops import channelnorm as cn
@@ -61,39 +64,78 @@ def _inputs(shape, n_pairs, dtype, device, seed=0):
             [draw(0.3) for _ in range(n_pairs)])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,n_pairs", [
+MODULATION_CASES = [
     ((2, 16, 64, 64), 1),    # plane cached in shared memory
     ((1, 8, 256, 256), 2),   # plane larger than the cache: re-read path
     ((3, 5, 7, 9), 4),       # ragged plane (63 elements), most pairs
-])
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,n_pairs", MODULATION_CASES)
 def test_spade_modulation_kernel_matches_plain(cuda_device, shape, n_pairs, dtype):
     x, gs, bs = _inputs(shape, n_pairs, dtype, cuda_device)
     before = spade_mod.launches
     with torch.no_grad():
         got = spade_mod.spade_modulation(x, gs, bs)
+        _, mean, rstd = spade_mod._launch_fwd(x, gs, bs, 1e-5)
     torch.cuda.synchronize()
-    assert spade_mod.launches == before + 1
+    assert spade_mod.launches == before + 2
     assert got.dtype == dtype and got.shape == x.shape
-    want = spade_mod.spade_modulation_plain(x, gs, bs).float()
-    err = (got.float() - want).abs().max().item()
     if dtype == torch.float32:
-        assert err <= 1e-4, err
+        want = spade_mod.spade_modulation_plain(x, gs, bs)
+        assert (got - want).abs().max().item() <= 1e-4
     else:
-        assert err <= 2e-2 * want.abs().max().item(), err
+        # given the kernel's statistics, the plain version rounds at the
+        # same steps: one bf16 ulp at most
+        want = spade_mod.spade_modulation_plain(x, gs, bs, stats=(mean, rstd))
+        assert bf16_ulps(got, want) <= 1.0
+    for got_s, want_s in zip((mean, rstd), spade_mod.spade_modulation_stats_plain(x)):
+        assert ((got_s - want_s).abs().max() / want_s.abs().max()).item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,n_pairs", MODULATION_CASES)
+def test_spade_modulation_backward_kernel_matches_plain(cuda_device, shape,
+                                                        n_pairs, dtype):
+    """Through autograd: dx and every dgamma from the backward kernel,
+    every dbeta = g; held as chip_smoke.py holds them."""
+    x, gs, bs = _inputs(shape, n_pairs, dtype, cuda_device)
+    g = _inputs(shape, 1, dtype, cuda_device, seed=1)[0]
+    leaves = [t.requires_grad_(True) for t in (x, *gs, *bs)]
+    before = (spade_mod.launches, spade_mod.bwd_launches)
+    out = spade_mod.spade_modulation(x, gs, bs)
+    grads = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert (spade_mod.launches, spade_mod.bwd_launches) == (before[0] + 1, before[1] + 1)
+    mean, rstd = spade_mod.spade_modulation_stats_plain(x.detach())
+    dx, dgamma = spade_mod.spade_modulation_bwd_plain(
+        x.detach(), [t.detach() for t in gs], mean, rstd, g)
+    for t in grads:
+        assert t.dtype == dtype and t.shape == x.shape
+    for t in grads[1 + n_pairs:]:
+        assert torch.equal(t, g)
+    if dtype == torch.float32:
+        assert ((grads[0] - dx).abs().max() / dx.abs().max()).item() <= 1e-5
+        for t in grads[1:1 + n_pairs]:
+            assert ((t - dgamma).abs().max() / dgamma.abs().max()).item() <= 1e-6
+    else:
+        scale = dx_term_scale(x.detach(), [t.detach() for t in gs], mean, rstd, g)
+        assert bf16_ulps(grads[0], dx, scale) <= 1.0
+        for t in grads[1:1 + n_pairs]:
+            assert bf16_ulps(t, dgamma) <= 1.0
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bad,error", [
-    ("pairs", ValueError), ("grad", NotImplementedError),
-    ("strided", ValueError), ("half", TypeError), ("mixed", ValueError)])
+    ("pairs", ValueError), ("strided", ValueError), ("half", TypeError),
+    ("mixed", ValueError)])
 def test_spade_modulation_wrapper_refuses(cuda_device, bad, error):
     x, gs, bs = _inputs((1, 2, 8, 8), 1, torch.float32, cuda_device)
     if bad == "pairs":
         gs, bs = gs * 5, bs * 5
-    elif bad == "grad":
-        x.requires_grad_(True)
     elif bad == "strided":
         x = x.transpose(2, 3)
     elif bad == "half":
@@ -245,6 +287,8 @@ def test_channelnorm_kernel_matches_plain(cuda_device, shape, p, offset, dtype):
     ((1, 8, 5, 70), 64, 64, 32),     # stride2 32: a ring of 2 stages
     ((2, 6, 6, 11), 5, 5, 2),        # md 5, s2 2: 6 steps, -5 .. 5
     ((6, 256, 64, 128), 20, 20, 2),  # the teacher's attach
+    ((1, 8, 4, 2048), 650, 650, 65),  # stride2 65: fp32 takes the direct path
+    ((2, 16, 6, 300), 182, 182, 91),  # stride2 91
 ])
 def test_correlation_kernel_matches_plain(cuda_device, shape, pad, md, s2, dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(3)

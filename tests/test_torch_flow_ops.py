@@ -245,8 +245,37 @@ def test_correlation_tile_plan_covers_each_output_once(shape, md, s2, elem_bytes
     ((65536, 1, 1, 1), 0, 1),          # more batch elements than grid rows
 ])
 def test_correlation_tile_plan_refuses_what_it_cannot_stage(shape, md, s2):
+    """A tile past shared memory now takes the direct path (one thread an
+    output); only a grid the card cannot launch still raises."""
+    if shape[0] > 65535:
+        with pytest.raises(ValueError, match="cannot stage"):
+            corr.tile_plan(shape, md, s2)
+        return
+    plan = corr.tile_plan(shape, md, s2)
+    assert plan["route"] == "direct" and plan["n_d"] == 21
+    assert plan["grid_x"] * plan["threads"] >= 21 * 21 * 4 * 2048
     with pytest.raises(ValueError, match="cannot stage"):
-        corr.tile_plan(shape, md, s2)
+        corr.direct_plan((2 ** 20, 8, 64, 64), 21)
+
+
+@pytest.mark.parametrize("elem_bytes", [4, 2])
+@pytest.mark.parametrize("shape,md,s2", [
+    ((1, 8, 4, 2048), 650, 65), ((2, 16, 6, 300), 182, 91),
+    ((1, 4, 3, 500), 400, 200), ((1, 8, 6, 45), 40, 20)])
+def test_correlation_wide_strides_choose_their_path_by_shape(
+        shape, md, s2, elem_bytes):
+    """fp32 from stride2 65 plans the direct path (bf16 tiles, half the
+    bytes, fit further); what fits shared memory keeps the tiled plan."""
+    plan = corr.tile_plan(shape, md, s2, elem_bytes)
+    direct = plan.get("route") == "direct"
+    if elem_bytes == 4:
+        assert direct == (s2 >= 65)
+    if direct:
+        b, _, h, w = shape
+        n_d = corr.num_displacements(md, s2)
+        assert plan["n_d"] == n_d
+        assert (plan["grid_x"] - 1) * plan["threads"] < b * n_d * n_d * h * w \
+            <= plan["grid_x"] * plan["threads"]
 
 
 @pytest.mark.parametrize("batch", [1, 6])

@@ -39,6 +39,18 @@ from imaginaire_tpu_torch.flow.flownet2 import Deconv, FlowNet2
 from imaginaire_tpu_torch.ops import resample2d as rs
 from imaginaire_tpu_torch.trainers.vid2vid import Trainer
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's side runs on one CPU thread: the suite runs several
+    test processes at once, and intra-op threads of each would contend
+    for the same cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 PARAMS = 162_518_834  # the reference's count (flownet2/models.py:17)
 TOL_REL = 1e-4
 CONF_BAND = 1e-3

@@ -31,6 +31,18 @@ from imaginaire_tpu_torch.utils import misc
 from imaginaire_tpu_torch.utils.init_weight import init_weights
 from imaginaire_tpu_torch.utils.model_average import collapse_spectral_norm
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's side runs on one CPU thread: the suite runs several
+    test processes at once, and intra-op threads of each would contend
+    for the same cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 ATOL = 1e-5
 
 
@@ -115,8 +127,28 @@ def test_batch_norm_running_statistics():
 
 
 def test_batch_norm_refuses_training_mode():
-    with pytest.raises(NotImplementedError):
-        tan.BatchNorm(4).train()(torch.zeros(1, 4, 2, 2))
+    """Training mode no longer refuses: it normalizes with the batch
+    statistics, and moves the running ones (biased variance, momentum
+    0.9) only when the owner's step advances its state."""
+    from imaginaire_tpu_torch.layers.state import state_updates
+
+    jmod, x = jan.BatchNorm(), rand(2, 8, 8, 4) * 2 + 0.5
+    variables = random_variables(jmod, jnp.asarray(x))
+    want, mut = jmod.apply(variables, jnp.asarray(x), training=True,
+                           mutable=["batch_stats"])
+    tmod = load_flax_variables(tan.BatchNorm(4), variables).train()
+    kept = tmod.mean.clone()
+    with torch.no_grad():
+        got = tmod(nchw(x))
+        assert torch.equal(tmod.mean, kept)  # not this network's step
+        with state_updates(tmod, True):
+            tmod(nchw(x))
+    np.testing.assert_allclose(nhwc(got), np.asarray(want), atol=ATOL, rtol=0)
+    stats = mut["batch_stats"]["BatchNorm_0"]
+    np.testing.assert_allclose(tmod.mean.numpy(), np.asarray(stats["mean"]),
+                               atol=ATOL, rtol=0)
+    np.testing.assert_allclose(tmod.var.numpy(), np.asarray(stats["var"]),
+                               atol=ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("base,separate", [("sync_batch", True),

@@ -24,6 +24,18 @@ from imaginaire_tpu_torch.serving.engine import (
 )
 from imaginaire_tpu_torch.utils.misc import resolve_device
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's side runs on one CPU thread: the suite runs several
+    test processes at once, and intra-op threads of each would contend
+    for the same cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 UNIT = "configs/unit_test/spade.yaml"
 TINY = dict(gen=dict(num_filters=2, style_dims=4, style_enc=dict(num_filters=2),
                      activation_norm_params=dict(num_filters=2)),

@@ -29,6 +29,18 @@ from imaginaire_tpu_torch.models.generators.spade import Generator, StyleEncoder
 from imaginaire_tpu_torch.trainers.spade import Trainer
 from imaginaire_tpu_torch.utils.init_weight import init_weights
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's side runs on one CPU thread: the suite runs several
+    test processes at once, and intra-op threads of each would contend
+    for the same cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 UNIT = "configs/unit_test/spade.yaml"
 COCO = "configs/projects/spade/cocostuff/base128_bs4.yaml"
 SMALL = dict(num_filters=8, style_dims=16, style_enc=dict(num_filters=4),
@@ -38,6 +50,11 @@ OVERRIDES = {
     COCO: dict(gen=dict(SMALL, activation_norm_params=dict(
         num_filters=8, activation_norm_type="instance"))),
 }
+
+
+# label maps of 64x64: the 256 ladder's least input with every level
+# above 1x1 (its 16x16 start runs at 4x4)
+LABEL_HW = 64
 
 
 def random_variables(shapes, seed=0):
@@ -73,7 +90,7 @@ def test_spade_generator_matches_jax(path):
     num_labels = tnet.spade_generator.head_0.conv.weight.shape[1] - (
         2 if tnet.spade_generator.use_posenc_in_input_layer else 0)
     assert num_labels == (185 if path == COCO else 14)
-    seg = one_hot_labels(2 if path == UNIT else 1, num_labels)
+    seg = one_hot_labels(2 if path == UNIT else 1, num_labels, hw=LABEL_HW)
     z = np.random.RandomState(2).randn(seg.shape[0], 16).astype(np.float32)
     shapes = jax.eval_shape(lambda: jnet.init(
         {"params": jax.random.PRNGKey(0), "noise": jax.random.PRNGKey(1)},
@@ -162,7 +179,7 @@ def test_trainer_fresh_weights_and_averaged_inference_params():
     # spectral norm then divides by ~1, so both forwards agree
     w = net.spade_generator.head_0.conv.weight
     assert not torch.equal(params["spade_generator.head_0.conv.weight"], w)
-    seg = nchw(one_hot_labels(1, 185, seed=5))
+    seg = nchw(one_hot_labels(1, 185, hw=LABEL_HW, seed=5))
     noise = torch.randn(1, 16, generator=torch.Generator().manual_seed(6))
     with torch.no_grad():
         live = net.inference({"label": seg}, random_style=True, noise=noise)

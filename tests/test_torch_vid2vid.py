@@ -34,6 +34,18 @@ from imaginaire_tpu_torch.models.generators.vid2vid import Generator
 from imaginaire_tpu_torch.ops import resample2d as rs
 from imaginaire_tpu_torch.serving.engine import ServingError, engine_from_config
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's side runs on one CPU thread: the suite runs several
+    test processes at once, and intra-op threads of each would contend
+    for the same cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 CFG = "configs/unit_test/vid2vid_street.yaml"
 LABELS, HW = 12, 64
 FLOW_MULTIPLIER = 40  # gen.flow.flow_output_multiplier of the config
