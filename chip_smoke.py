@@ -11,10 +11,12 @@ Phases, one line each; any failure exits non-zero:
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: compile every kernel of the main paths from csrc/ (one nvcc per
    source, all started together; sm_90a), with ptxas registers and spills;
+   it fails if a spade_modulation kernel spills;
 3. kernels: hold each kernel against its plain PyTorch version at every
-   shape the main paths give it (and, for resample2d, correlation and
-   channelnorm, at edge shapes; spade_modulation forward and backward in
-   fp32 and bf16, the bf16 forward to one ulp given the same statistics),
+   shape the main paths give it (and at edge shapes: for
+   spade_modulation every path of its plan and the plan's boundaries,
+   forward and backward in fp32 and bf16, the bf16 forward to one ulp
+   given the same statistics),
    and time both (CUDA events, L2 flushed before each launch) beside the
    card's bound for the same work and, where one exists, the PyTorch
    call that computes the same function; resample2d is timed at both
@@ -63,6 +65,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -120,6 +123,18 @@ MODULATION_SHAPES = [
     ((4, 256, 128, 128), 1),  # up_2b conv_1
 ]
 CALLS_PER_FORWARD = sum(n for _, n in MODULATION_SHAPES)
+# the modulation kernels' other paths and plan boundaries, checked in
+# phase 3 in fp32 and bf16: (shape, n_pairs, bytes x starts past a 16-byte
+# boundary); the routes the plan gives each are printed beside it
+MODULATION_EDGE = [
+    ((3, 5, 7, 9), 4, 0),        # ragged plane, most pairs: scalar path
+    ((2, 8, 32, 32), 1, 4),      # a view 4 bytes past 16: scalar path
+    ((1, 8, 256, 256), 2, 0),    # past every block capacity: stream path
+    ((1, 3, 128, 136), 1, 0),    # just past the fp32 forward's and both
+                                 # backwards' block capacity (16384)
+    ((1, 2, 128, 264), 1, 0),    # just past the bf16 forward's (32768)
+    ((1, 4, 128, 128), 4, 0),    # most pairs at 128x128
+]
 NUM_LABELS = 185  # 183 COCO-Stuff classes + dont-care + edge map
 N_REQUESTS = 7
 # SPADE training: D+G steps at batch 4; per step the modulation runs 19
@@ -300,89 +315,145 @@ def modulation_bwd_bound_ms(shape, n_pairs, elem_bytes):
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
+def ptxas_kernels(log):
+    """Each kernel of an ``nvcc -Xptxas=-v`` log: its (mangled) name,
+    registers and spill bytes (stores + loads)."""
+    kernels, current = [], None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = {"name": m.group(1), "registers": None, "spill_bytes": None}
+            kernels.append(current)
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            current["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+    return [k for k in kernels if k["registers"] is not None]
+
+
+def modulation_inputs(shape, n_pairs, dtype, gen, offset=0):
+    """x (starting ``offset`` bytes past a 16-byte boundary), the gammas,
+    the betas and an output gradient g, seeded from ``gen``."""
+    def draw(scale, shift=0.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                + shift).to(dtype)
+
+    x = at_offset(draw(2.0, 0.5), offset)
+    gs = [draw(0.3) for _ in range(n_pairs)]
+    bs = [draw(0.3) for _ in range(n_pairs)]
+    return x, gs, bs, draw(1.0)
+
+
+def modulation_errors(spade_mod, x, gs, bs, g, fwd=None, bwd=None):
+    """Hold one forward launch ``fwd(x, gs, bs) -> (out, mean, rstd)``
+    and one backward launch ``bwd(x, gs, mean, rstd, g) -> (dx, dgamma)``
+    (default: the wrapper's kernels under their plans; None skips it)
+    against the plain versions on the same inputs, the backward on the
+    plain statistics. Returns the errors, their bounds and ``ok``."""
+    out = {"ok": True}
+    if fwd is not None:
+        got, mean, rstd = fwd(x, gs, bs)
+        mean_p, rstd_p = spade_mod.spade_modulation_stats_plain(x)
+        torch.cuda.synchronize()
+        stats_err = max(((mean - mean_p).abs().max() / mean_p.abs().max()).item(),
+                        ((rstd - rstd_p).abs().max() / rstd_p.abs().max()).item())
+        if x.dtype == torch.float32:
+            want = spade_mod.spade_modulation_plain(x, gs, bs)
+            err, bound = (got - want).abs().max().item(), TOL_FP32
+        else:
+            want = spade_mod.spade_modulation_plain(x, gs, bs, stats=(mean, rstd))
+            err, bound = bf16_ulps(got, want), TOL_BF16_ULPS
+        out.update(forward_error=err, forward_bound=bound,
+                   statistics_error=stats_err)
+        out["ok"] &= err <= bound and stats_err <= TOL_STATS_REL
+    if bwd is not None:
+        mean_p, rstd_p = spade_mod.spade_modulation_stats_plain(x)
+        dx, dgamma = bwd(x, gs, mean_p, rstd_p, g)
+        dx_p, dgamma_p = spade_mod.spade_modulation_bwd_plain(x, gs, mean_p, rstd_p, g)
+        torch.cuda.synchronize()
+        if x.dtype == torch.float32:
+            errs = [((dx - dx_p).abs().max() / dx_p.abs().max()).item(),
+                    ((dgamma - dgamma_p).abs().max() / dgamma_p.abs().max()).item()]
+            bounds = [TOL_BWD_DX_REL, TOL_BWD_DGAMMA_REL]
+        else:
+            errs = [bf16_ulps(dx, dx_p, dx_term_scale(x, gs, mean_p, rstd_p, g)),
+                    bf16_ulps(dgamma, dgamma_p)]
+            bounds = [TOL_BF16_ULPS, TOL_BF16_ULPS]
+        out["ok"] &= all(e <= b for e, b in zip(errs, bounds))
+        if x.dtype != torch.float32:
+            errs.append(bf16_ulps(dx, dx_p))  # of dx's own value
+        out.update(backward_errors=errs, backward_bounds=bounds)
+    return out
+
+
+def modulation_routes(spade_mod, x, n_pairs):
+    """The plan routes of the forward and the backward for x."""
+    b, c, h, w = x.shape
+    aligned = x.data_ptr() % 16 == 0
+    return [spade_mod.modulation_plan(b * c, h * w, x.dtype, n_pairs, aligned,
+                                      backward)["route"]
+            for backward in (False, True)]
+
+
 def check_modulation(spade_mod):
     """Phase 3: forward and backward kernels vs their plain versions at
-    every main-path shape, n_pairs 1 and 2, fp32 and bf16; times at
-    n_pairs 1 (the main paths' case), fp32 and bf16. Returns the forward
-    rows, the backward rows, and the forward's and the backward's fp32
-    errors."""
+    every main-path shape, n_pairs 1 and 2, and at MODULATION_EDGE, fp32
+    and bf16; times at the main-path shapes at n_pairs 1 (the main paths'
+    case), fp32 and bf16. Returns the forward rows, the backward rows,
+    and the forward's and the backward's fp32 errors."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(1234)
+    fwd = lambda x, gs, bs: spade_mod._launch_fwd(x, gs, bs, 1e-5)  # noqa: E731
+    bwd = spade_mod._launch_bwd
     rows, bwd_rows, max_err, bwd_err = [], [], 0.0, 0.0
-    for shape, calls in MODULATION_SHAPES:
+    cases = [(shape, calls, n_pairs, 0) for shape, calls in MODULATION_SHAPES
+             for n_pairs in (1, 2)]
+    cases += [(shape, 0, n_pairs, offset) for shape, n_pairs, offset in MODULATION_EDGE]
+    for shape, calls, n_pairs, offset in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            for n_pairs in (1, 2):
-                x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
-                gs = [(torch.randn(shape, generator=gen, device="cuda") * 0.3).to(dtype)
-                      for _ in range(n_pairs)]
-                bs = [(torch.randn(shape, generator=gen, device="cuda") * 0.3).to(dtype)
-                      for _ in range(n_pairs)]
-                g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-                name = f"{str(dtype).split('.')[-1]} n_pairs={n_pairs}"
-                got, mean, rstd = spade_mod._launch_fwd(x, gs, bs, 1e-5)
+            x, gs, bs, g = modulation_inputs(shape, n_pairs, dtype, gen, offset)
+            name = f"{str(dtype).split('.')[-1]} n_pairs={n_pairs}"
+            errs = modulation_errors(spade_mod, x, gs, bs, g, fwd, bwd)
+            routes = modulation_routes(spade_mod, x, n_pairs)
+            phase("kernel_check", name="spade_modulation", shape=list(shape),
+                  case=name, offset=offset, routes=routes, **errs)
+            if not errs["ok"]:
+                raise AssertionError(f"spade_modulation {shape} {name} offset "
+                                     f"{offset}: {errs}")
+            if dtype == torch.float32:
+                max_err = max(max_err, errs["forward_error"])
+                bwd_err = max(bwd_err, *errs["backward_errors"])
+            if n_pairs == 1 and calls:
                 mean_p, rstd_p = spade_mod.spade_modulation_stats_plain(x)
-                torch.cuda.synchronize()
-                stats_err = max(((mean - mean_p).abs().max() / mean_p.abs().max()).item(),
-                                ((rstd - rstd_p).abs().max() / rstd_p.abs().max()).item())
-                if dtype == torch.float32:
-                    want = spade_mod.spade_modulation_plain(x, gs, bs)
-                    err = (got - want).abs().max().item()
-                    max_err = max(max_err, err)
-                    ok = err <= TOL_FP32
-                else:
-                    want = spade_mod.spade_modulation_plain(x, gs, bs, stats=(mean, rstd))
-                    err = bf16_ulps(got, want)
-                    ok = err <= TOL_BF16_ULPS
-                if not ok or not stats_err <= TOL_STATS_REL:
-                    raise AssertionError(f"spade_modulation {shape} {name}: error "
-                                         f"{err}, statistics {stats_err}")
-                dx, dgamma = spade_mod._launch_bwd(x, gs, mean_p, rstd_p, g)
-                dx_p, dgamma_p = spade_mod.spade_modulation_bwd_plain(
-                    x, gs, mean_p, rstd_p, g)
-                torch.cuda.synchronize()
-                if dtype == torch.float32:
-                    errs = (((dx - dx_p).abs().max() / dx_p.abs().max()).item(),
-                            ((dgamma - dgamma_p).abs().max() / dgamma_p.abs().max()).item())
-                    bwd_err = max(bwd_err, errs[0], errs[1])
-                    ok = errs[0] <= TOL_BWD_DX_REL and errs[1] <= TOL_BWD_DGAMMA_REL
-                    bounds = [TOL_BWD_DX_REL, TOL_BWD_DGAMMA_REL]
-                else:
-                    errs = (bf16_ulps(dx, dx_p, dx_term_scale(x, gs, mean_p, rstd_p, g)),
-                            bf16_ulps(dgamma, dgamma_p))
-                    ok = max(errs) <= TOL_BF16_ULPS
-                    bounds = [TOL_BF16_ULPS, TOL_BF16_ULPS]
-                    errs = errs + (bf16_ulps(dx, dx_p),)  # of dx's own value
-                phase("kernel_check", name="spade_modulation", shape=list(shape),
-                      case=name, forward_error=err,
-                      forward_bound=TOL_FP32 if dtype == torch.float32 else TOL_BF16_ULPS,
-                      statistics_error=stats_err, backward_errors=list(errs),
-                      backward_bounds=bounds)
-                if not ok:
-                    raise AssertionError(f"spade_modulation_bwd {shape} {name}: "
-                                         f"errors {errs}, bounds {bounds}")
-                if n_pairs == 1:
-                    size = x.element_size()
-                    bound, bound_by = modulation_bound_ms(shape, 1, size)
-                    row = {"shape": list(shape), "calls": calls, "dtype": name,
-                           "ms": time_ms(lambda: spade_mod._launch_fwd(x, gs, bs, 1e-5)),
-                           "plain_ms": time_ms(lambda: spade_mod.spade_modulation_plain(x, gs, bs)),
-                           "bound_ms": bound, "bound_by": bound_by,
-                           "max_abs_err": err}
-                    row["bound_share"] = row["bound_ms"] / row["ms"]
-                    rows.append(row)
-                    phase("kernel", name="spade_modulation", **row)
-                    bound, bound_by = modulation_bwd_bound_ms(shape, 1, size)
-                    row = {"shape": list(shape), "calls": calls, "dtype": name,
-                           "ms": time_ms(lambda: spade_mod._launch_bwd(x, gs, mean_p, rstd_p, g)),
-                           "plain_ms": time_ms(lambda: spade_mod.spade_modulation_bwd_plain(
-                               x, gs, mean_p, rstd_p, g)),
-                           "bound_ms": bound, "bound_by": bound_by,
-                           "errors": list(errs)}
-                    row["bound_share"] = row["bound_ms"] / row["ms"]
-                    bwd_rows.append(row)
-                    phase("kernel", name="spade_modulation_bwd", **row)
-                del x, gs, bs, g, got, want, dx, dgamma, dx_p, dgamma_p
+                size = x.element_size()
+                bound, bound_by = modulation_bound_ms(shape, 1, size)
+                row = {"shape": list(shape), "calls": calls, "dtype": name,
+                       "route": routes[0],
+                       "ms": time_ms(lambda: fwd(x, gs, bs)),
+                       "plain_ms": time_ms(lambda: spade_mod.spade_modulation_plain(x, gs, bs)),
+                       "bound_ms": bound, "bound_by": bound_by,
+                       "max_abs_err": errs["forward_error"]}
+                row["bound_share"] = row["bound_ms"] / row["ms"]
+                rows.append(row)
+                phase("kernel", name="spade_modulation", **row)
+                bound, bound_by = modulation_bwd_bound_ms(shape, 1, size)
+                row = {"shape": list(shape), "calls": calls, "dtype": name,
+                       "route": routes[1],
+                       "ms": time_ms(lambda: bwd(x, gs, mean_p, rstd_p, g)),
+                       "plain_ms": time_ms(lambda: spade_mod.spade_modulation_bwd_plain(
+                           x, gs, mean_p, rstd_p, g)),
+                       "bound_ms": bound, "bound_by": bound_by,
+                       "errors": errs["backward_errors"]}
+                row["bound_share"] = row["bound_ms"] / row["ms"]
+                bwd_rows.append(row)
+                phase("kernel", name="spade_modulation_bwd", **row)
+            del x, gs, bs, g
     torch.cuda.empty_cache()
     return rows, bwd_rows, max_err, bwd_err
 
@@ -1261,8 +1332,13 @@ def main():
                     Path(f"{lib}.log").read_text().splitlines()
                     if "registers" in line or "spill" in line]
              for name, lib in libs.items()}
+    mod_kernels = ptxas_kernels(Path(f"{libs[spade_mod.KERNEL]}.log").read_text())
     phase("build", seconds=build_s, libraries=[str(p) for p in libs.values()],
-          ptxas=ptxas)
+          ptxas={k: v for k, v in ptxas.items() if k != spade_mod.KERNEL},
+          modulation_kernels=mod_kernels)
+    spilled = [k for k in mod_kernels if k["spill_bytes"] != 0]
+    if not mod_kernels or spilled:
+        raise AssertionError(f"spade_modulation kernels spill registers: {spilled}")
 
     rows, bwd_rows, max_err, bwd_err = check_modulation(spade_mod)
     rs_rows, rs_err = check_resample(rs)

@@ -22,6 +22,11 @@ residuals are (x, gamma_i, mean, rstd). Tensors are NCHW.
   hand-written kernels (``csrc/spade_modulation.cu``, forward and
   backward) or raises. ``launches`` and ``bwd_launches`` count the
   kernel launches.
+- ``modulation_plan``: the kernels' launch for one call (path, vector
+  width, vectors a thread holds, cluster size, threads, planes a block,
+  grid), chosen by shape, type and alignment here so that the CPU tests
+  reach it; the kernels check it and run it, and refuse a plan they
+  cannot run (the wrapper then raises).
 
 The statistics are computed in fp32 for fp32 and bf16 inputs, and in
 fp64 for fp64 inputs (so that ``torch.autograd.gradcheck`` can check the
@@ -41,6 +46,19 @@ from imaginaire_tpu_torch.ops import build
 KERNEL = "spade_modulation"
 MAX_PAIRS = 4  # SPADE_MAX_PAIRS in csrc/spade_modulation.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# the kernels' struct Plan, field by field (csrc/spade_modulation.cu)
+PLAN_FIELDS = ("path", "vec", "per_thread", "cluster", "threads",
+               "planes_per_block", "grid")
+PATHS = {"warp": 0, "block": 1, "stream": 2}  # PATH_WARP, PATH_BLOCK, PATH_STREAM
+# vectors a lane may hold on the warp path: up to 128 vectors a plane,
+# 1024 bf16 or 512 fp32 elements (a 32x32 fp32 plane runs as a block)
+WARP_PER_THREAD = (1, 2, 4)
+WARP_MAX_VECTORS = 32 * WARP_PER_THREAD[-1]
+WARP_BLOCK_THREADS = 128      # 4 planes a block on the warp path
+BLOCK_PER_THREAD = 4          # SPADE_BLOCK_NV: vectors a thread on the block path
+STREAM_THREADS = 512          # SPADE_STREAM_THREADS
+MAX_GRID = 2 ** 31 - 1
 
 launches = 0      # forward kernel launches since the last reset (set to 0)
 bwd_launches = 0  # backward kernel launches since the last reset (set to 0)
@@ -146,17 +164,107 @@ def spade_modulation(x, gammas, betas, eps=1e-5):
 def _library():
     lib = build.load(KERNEL)
     ptr, ptrs, i64 = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.c_longlong
+    ints = ctypes.POINTER(ctypes.c_int)
     lib.spade_modulation_fwd.argtypes = [
         ptr, ptrs, ptrs, ctypes.c_int, ptr, ptr, ptr, i64, i64, ctypes.c_float,
-        ctypes.c_int, ptr]
+        ctypes.c_int, ints, ptr]
     lib.spade_modulation_fwd.restype = ctypes.c_int
     lib.spade_modulation_bwd.argtypes = [
         ptr, ptrs, ctypes.c_int, ptr, ptr, ptr, ptr, ptr, i64, i64,
-        ctypes.c_int, ptr]
+        ctypes.c_int, ints, ptr]
     lib.spade_modulation_bwd.restype = ctypes.c_int
     lib.spade_modulation_error_string.argtypes = [ctypes.c_int]
     lib.spade_modulation_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def max_threads(per_thread, arrays):
+    """The most threads a block of a cached kernel may have when its
+    registers hold ``arrays`` arrays of ``per_thread`` 16-byte vectors
+    (``max_threads`` in csrc/spade_modulation.cu)."""
+    return 1024 if 4 * per_thread * arrays <= 16 else 512
+
+
+def block_clusters(dtype, backward):
+    """The cluster sizes the block path may take, in order of preference
+    (``cluster_ok`` in csrc/spade_modulation.cu): one block a plane, and
+    for the fp32 backward, whose 128x128 plane one block's registers
+    cannot hold, a cluster of 2. A cluster lost to one block wherever one
+    block holds the plane (scripts/torch_kernel_probe.py, PERF.md)."""
+    return (1, 2) if backward and dtype == torch.float32 else (1,)
+
+
+def _ceil(a, b):
+    return -(-a // b)
+
+
+def _warps(n):
+    return 32 * _ceil(n, 32)
+
+
+def modulation_plan(n_planes, plane, dtype, n_pairs=1, aligned=True,
+                    backward=False, cluster=None):
+    """The kernels' launch for ``n_planes`` = B C planes of ``plane`` =
+    H W elements of ``dtype`` (float32 or bfloat16) with ``n_pairs``
+    (gamma, beta) pairs; ``aligned``: every pointer of the call 16-byte
+    aligned. A dict of PLAN_FIELDS and ``route`` (the path's name):
+
+    - stream, scalar (``vec`` 1): a ragged plane (H W not a multiple of
+      the 16-byte vector) or a misaligned pointer; one block a plane;
+    - warp: a plane of at most WARP_MAX_VECTORS vectors is one warp's,
+      ``per_thread`` vectors a lane, WARP_BLOCK_THREADS // 32 planes a
+      block;
+    - block: one block (or a cluster of ``cluster`` blocks) a plane, each
+      thread holding BLOCK_PER_THREAD vectors of it in registers, the
+      first of ``block_clusters`` (or ``cluster``) whose threads fit the
+      register bound;
+    - stream (``vec`` 8 bf16, 4 fp32): a plane the block path cannot hold,
+      re-read for each pass.
+
+    Raises ValueError for a grid the card cannot launch, and for a
+    ``cluster`` that cannot hold the plane."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"the spade_modulation kernel takes float32 or "
+                        f"bfloat16, got {dtype}")
+    if not 1 <= n_pairs <= MAX_PAIRS:
+        raise ValueError(f"the spade_modulation kernel takes 1 to {MAX_PAIRS} "
+                         f"(gamma, beta) pairs, got {n_pairs}")
+    native = 16 // dtype.itemsize
+    vec = native if aligned and plane % native == 0 else 1
+    if cluster is not None and vec == 1:
+        raise ValueError(f"the block path needs 16-byte vectors: a plane of "
+                         f"{plane} elements, aligned={aligned}")
+    pv = plane // vec
+    bound = max_threads(BLOCK_PER_THREAD, 3 if backward else 1)
+    plan = None
+    if vec > 1 and pv <= WARP_MAX_VECTORS and cluster is None:
+        per_thread = next(n for n in WARP_PER_THREAD if 32 * n >= pv)
+        threads = min(WARP_BLOCK_THREADS, _warps(32 * n_planes))
+        plan = dict(route="warp", per_thread=per_thread, cluster=1,
+                    threads=threads, planes_per_block=threads // 32,
+                    grid=_ceil(n_planes, threads // 32))
+    elif vec > 1:
+        choices = block_clusters(dtype, backward)
+        for cl in (cluster,) if cluster is not None else choices:
+            threads = max(32, _warps(_ceil(pv, BLOCK_PER_THREAD * cl)))
+            if cl in choices and threads <= bound:
+                plan = dict(route="block", per_thread=BLOCK_PER_THREAD, cluster=cl,
+                            threads=threads, planes_per_block=1,
+                            grid=n_planes * cl)
+                break
+        else:
+            if cluster is not None:
+                raise ValueError(f"the block path cannot hold a plane of {plane} "
+                                 f"{dtype} elements over a cluster of {cluster}")
+    if plan is None:
+        plan = dict(route="stream", per_thread=0, cluster=1,
+                    threads=min(STREAM_THREADS, _warps(pv)), planes_per_block=1,
+                    grid=n_planes)
+    if plan["grid"] > MAX_GRID:
+        raise ValueError(f"the spade_modulation kernel cannot launch "
+                         f"{n_planes} planes: its grid would be {plan['grid']} "
+                         f"blocks")
+    return dict(plan, path=PATHS[plan["route"]], vec=vec)
 
 
 def _check_kernel_args(x, gammas, betas):
@@ -187,8 +295,25 @@ def _pointers(tensors):
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
-def _launch_fwd(x, gammas, betas, eps):
-    """(out, mean, rstd) from the forward kernel."""
+def _plan_fields(plan):
+    return (ctypes.c_int * len(PLAN_FIELDS))(*(plan[k] for k in PLAN_FIELDS))
+
+
+@functools.lru_cache(maxsize=1024)
+def _default_fields(n_planes, plane, dtype, n_pairs, aligned, backward):
+    """The C fields of modulation_plan's plan, kept per call shape: a
+    training step asks for the same 7 shapes 76 times."""
+    return _plan_fields(modulation_plan(n_planes, plane, dtype, n_pairs, aligned,
+                                        backward))
+
+
+def _aligned(tensors):
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _launch_fwd(x, gammas, betas, eps, plan=None):
+    """(out, mean, rstd) from the forward kernel, under ``plan`` (default
+    ``modulation_plan``'s)."""
     global launches
     b, c, h, w = x.shape
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
@@ -196,20 +321,24 @@ def _launch_fwd(x, gammas, betas, eps):
     rstd = torch.empty((b, c), dtype=torch.float32, device=x.device)
     if x.numel() == 0:
         return out, mean, rstd
+    fields = _plan_fields(plan) if plan is not None else _default_fields(
+        b * c, h * w, x.dtype, len(gammas),
+        _aligned((x, out) + tuple(gammas) + tuple(betas)), False)
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.spade_modulation_fwd(
             x.data_ptr(), _pointers(gammas), _pointers(betas), len(gammas),
             out.data_ptr(), mean.data_ptr(), rstd.data_ptr(), b * c, h * w,
-            eps, _DTYPE_CODES[x.dtype], stream)
+            eps, _DTYPE_CODES[x.dtype], fields, stream)
     _raise_on(lib, err, "forward")
     launches += 1
     return out, mean, rstd
 
 
-def _launch_bwd(x, gammas, mean, rstd, g):
-    """(dx, dgamma) from the backward kernel."""
+def _launch_bwd(x, gammas, mean, rstd, g, plan=None):
+    """(dx, dgamma) from the backward kernel, under ``plan`` (default
+    ``modulation_plan``'s)."""
     global bwd_launches
     g = g.to(x.dtype).contiguous()
     mean, rstd = (t.to(torch.float32).contiguous() for t in (mean, rstd))
@@ -222,13 +351,16 @@ def _launch_bwd(x, gammas, mean, rstd, g):
     if x.numel() == 0:
         return dx, dgamma
     b, c, h, w = x.shape
+    fields = _plan_fields(plan) if plan is not None else _default_fields(
+        b * c, h * w, x.dtype, len(gammas),
+        _aligned((x, g, dx, dgamma) + tuple(gammas)), True)
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.spade_modulation_bwd(
             x.data_ptr(), _pointers(gammas), len(gammas), mean.data_ptr(),
             rstd.data_ptr(), g.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
-            b * c, h * w, _DTYPE_CODES[x.dtype], stream)
+            b * c, h * w, _DTYPE_CODES[x.dtype], fields, stream)
     _raise_on(lib, err, "backward")
     bwd_launches += 1
     return dx, dgamma

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Where the port's flow kernels spend their time, on one NVIDIA GPU.
+"""Where the port's kernels spend their time, on one NVIDIA GPU.
 
     python3 scripts/torch_kernel_probe.py [--json PATH] [--probes NAMES]
         [--resample-baseline SOURCE] [--correlation-baseline SOURCE]
+        [--modulation-baseline SOURCE]
 
-Three measurements (``--probes``, default all three: timer, correlation,
-resample2d), each timed in turns (the cases in order, then in reverse)
-with chip_smoke.py's timer:
+Four measurements (``--probes``, default all four: timer, correlation,
+resample2d, modulation), each timed in turns (the cases in order, then
+in reverse) with chip_smoke.py's timer:
 
 1. The timer's own cost: channelnorm and torch.linalg.vector_norm at one
    frame pair (C = 3 and 2, fp32), each under chip_smoke.time_ms (the L2
@@ -77,6 +78,38 @@ with chip_smoke.py's timer:
    - grid_sample: ``F.grid_sample`` (bilinear, border, align_corners) of
      the same warp, the library call chip_smoke.py times beside the
      kernel (not held to the plain version: it rounds otherwise).
+4. The spade_modulation forward and backward at the 19 calls' 7 shapes
+   of a bs-4 SPADE forward (chip_smoke.MODULATION_SHAPES), fp32 and bf16,
+   n_pairs 1, each case held to the plain version as chip_smoke.py holds
+   the kernels (``modulation_errors``):
+
+   - as_built: the kernels under ``modulation_plan``'s plan;
+   - baseline: an earlier ``csrc/spade_modulation.cu`` bound with the C
+     interface that had no plan argument (that of commit 26063d5:
+     ``spade_modulation_fwd(x, gammas, betas, n_pairs, out, mean, rstd,
+     n_planes, plane, eps, dtype, stream)`` and
+     ``spade_modulation_bwd(x, gammas, n_pairs, mean, rstd, g, dx,
+     dgamma, n_planes, plane, dtype, stream)``), given by
+     ``--modulation-baseline`` (for example ``git show
+     26063d5:imaginaire_tpu_torch/csrc/spade_modulation.cu >
+     chip_copies/spade_modulation_baseline.cu``); skipped without it;
+   - warp_N_Tt, block_xC, stream: the kernels under another plan
+     through the C interface: at planes a warp can hold (at most 1024
+     bf16 or 512 fp32 elements) the warp path, N vectors a lane, in
+     blocks of T threads (4 or 8 planes a block); the block path over a
+     cluster of C blocks (every C of ``block_clusters`` that can hold the
+     plane; at most 1024 elements only C = 1); above 1024 elements the
+     re-reading path;
+   - empty_kernel: one block that does nothing, what the timer and a
+     launch cost by themselves; addcmul (forward only):
+     ``torch.addcmul(beta, x, gamma)``, one elementwise call that moves
+     the n_pairs-1 forward's bytes (reads three tensors, writes one),
+     what a streaming kernel of those bytes takes. Neither computes the
+     modulation: both are timed, not held to the plain version.
+
+   Beside them, the host time of one call (``host_us``: the as-built C
+   interface with a prebuilt plan, the wrapper ``_launch_fwd``, and the
+   baseline's C interface) at the largest shape.
 
 Imports nothing of JAX. Needs nvcc and a CUDA card.
 """
@@ -103,6 +136,7 @@ from imaginaire_tpu_torch.ops import build  # noqa: E402
 from imaginaire_tpu_torch.ops import channelnorm as cn  # noqa: E402
 from imaginaire_tpu_torch.ops import correlation as corr  # noqa: E402
 from imaginaire_tpu_torch.ops import resample2d as rs  # noqa: E402
+from imaginaire_tpu_torch.ops import spade_modulation as spade_mod  # noqa: E402
 
 SHAPES = [chip_smoke.CORR_PAIR_SHAPE, chip_smoke.CORR_PATH_SHAPE]
 MD, S2 = chip_smoke.FLOWNETC["max_displacement"], chip_smoke.FLOWNETC["stride2"]
@@ -458,20 +492,191 @@ def probe_resample(gen, out_dir, baseline):
     return rows
 
 
+def baseline_modulation(lib):
+    """fwd(x, gs, bs) and bwd(x, gs, mean, rstd, g) of a kernel source
+    whose C interface takes no plan (that of commit 26063d5)."""
+    ptr, ptrs, i64, i32 = (ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+                           ctypes.c_longlong, ctypes.c_int)
+    lib.spade_modulation_fwd.argtypes = [
+        ptr, ptrs, ptrs, i32, ptr, ptr, ptr, i64, i64, ctypes.c_float, i32, ptr]
+    lib.spade_modulation_fwd.restype = i32
+    lib.spade_modulation_bwd.argtypes = [
+        ptr, ptrs, i32, ptr, ptr, ptr, ptr, ptr, i64, i64, i32, ptr]
+    lib.spade_modulation_bwd.restype = i32
+    pointers = spade_mod._pointers
+    code = spade_mod._DTYPE_CODES
+
+    def check(err):
+        if err != 0:
+            raise RuntimeError(f"baseline spade_modulation: CUDA error {err}")
+
+    def fwd(x, gs, bs):
+        b, c, h, w = x.shape
+        out = torch.empty_like(x)
+        mean = torch.empty((b, c), dtype=torch.float32, device=x.device)
+        rstd = torch.empty_like(mean)
+        check(lib.spade_modulation_fwd(
+            x.data_ptr(), pointers(gs), pointers(bs), len(gs), out.data_ptr(),
+            mean.data_ptr(), rstd.data_ptr(), b * c, h * w, 1e-5, code[x.dtype],
+            torch.cuda.current_stream().cuda_stream))
+        return out, mean, rstd
+
+    def bwd(x, gs, mean, rstd, g):
+        b, c, h, w = x.shape
+        dx, dgamma = torch.empty_like(x), torch.empty_like(x)
+        check(lib.spade_modulation_bwd(
+            x.data_ptr(), pointers(gs), len(gs), mean.data_ptr(), rstd.data_ptr(),
+            g.data_ptr(), dx.data_ptr(), dgamma.data_ptr(), b * c, h * w,
+            code[x.dtype], torch.cuda.current_stream().cuda_stream))
+        return dx, dgamma
+
+    def host_fwd(x, gs, bs):
+        """fn() of one raw C call into preallocated outputs."""
+        b, c, h, w = x.shape
+        out, mean = torch.empty_like(x), torch.empty((b, c), device=x.device)
+        rstd = torch.empty_like(mean)
+        args = (x.data_ptr(), pointers(gs), pointers(bs), len(gs), out.data_ptr(),
+                mean.data_ptr(), rstd.data_ptr(), b * c, h * w, 1e-5, code[x.dtype],
+                torch.cuda.current_stream().cuda_stream)
+        return lambda: check(lib.spade_modulation_fwd(*args))
+
+    return fwd, bwd, host_fwd
+
+
+def modulation_variants(shape, dtype, backward):
+    """{name: plan} of the as-built kernels at ``shape``: the plan's own
+    and the other plans the design weighs."""
+    b, c, h, w = shape
+    n, plane = b * c, h * w
+    plans = {"as_built": spade_mod.modulation_plan(n, plane, dtype, 1, True, backward)}
+    native = 16 // dtype.itemsize
+    small = plane <= 1024  # 16x16 and 32x32: a warp against a block
+    if small and plane <= spade_mod.WARP_MAX_VECTORS * native:
+        per_thread = next(n for n in spade_mod.WARP_PER_THREAD
+                          if 32 * n * native >= plane)
+        for threads in (128, 256):  # 4 or 8 planes a block
+            plans[f"warp_{per_thread}_{threads}t"] = dict(
+                plans["as_built"], route="warp", path=spade_mod.PATHS["warp"],
+                per_thread=per_thread, cluster=1, threads=threads,
+                planes_per_block=threads // 32, grid=-(-n // (threads // 32)))
+    for cluster in spade_mod.block_clusters(dtype, backward):
+        if small and cluster > 1:
+            continue
+        try:
+            plans[f"block_x{cluster}"] = spade_mod.modulation_plan(
+                n, plane, dtype, 1, True, backward, cluster=cluster)
+        except ValueError:
+            pass  # cannot hold the plane
+    if not small:
+        plans["stream"] = dict(
+            plans["as_built"], route="stream", path=spade_mod.PATHS["stream"],
+            per_thread=0, cluster=1, planes_per_block=1, grid=n,
+            threads=min(spade_mod.STREAM_THREADS, 32 * -(-plane // native // 32)))
+    return plans
+
+
+def probe_modulation(gen, out_dir, baseline):
+    specs = {"floor": ([], STREAM_FLOOR)}
+    if baseline is not None:
+        specs["baseline"] = ([], baseline.read_text())
+    libs = build_variants(spade_mod.KERNEL, specs, out_dir)
+    base = baseline_modulation(libs["baseline"][0]) if baseline is not None else None
+    empty_fwd = libs["floor"][0].empty_fwd
+    empty_fwd.argtypes, empty_fwd.restype = [ctypes.c_void_p], ctypes.c_int
+    empty = lambda: empty_fwd(torch.cuda.current_stream().cuda_stream)  # noqa: E731
+    rows = []
+    for shape, calls in chip_smoke.MODULATION_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, gs, bs, g = chip_smoke.modulation_inputs(shape, 1, dtype, gen)
+            mean_p, rstd_p = spade_mod.spade_modulation_stats_plain(x)
+            for backward in (False, True):
+                fns = {}
+                for name, plan in modulation_variants(shape, dtype, backward).items():
+                    if backward:
+                        fns[name] = (plan, lambda plan=plan: spade_mod._launch_bwd(
+                            x, gs, mean_p, rstd_p, g, plan))
+                    else:
+                        fns[name] = (plan, lambda plan=plan: spade_mod._launch_fwd(
+                            x, gs, bs, 1e-5, plan))
+                if base is not None:
+                    fns["baseline"] = (None, (lambda: base[1](x, gs, mean_p, rstd_p, g))
+                                       if backward else (lambda: base[0](x, gs, bs)))
+                floors = {"empty_kernel": empty}
+                if not backward:  # one elementwise call of the forward's bytes
+                    floors["addcmul"] = lambda: torch.addcmul(bs[0], x, gs[0])
+                fns.update((name, (None, fn)) for name, fn in floors.items())
+                names = list(fns)
+                times = {name: [] for name in names}
+                for name in names + names[::-1]:
+                    times[name].append(chip_smoke.time_ms(fns[name][1]))
+                size = x.element_size()
+                bound, _ = (chip_smoke.modulation_bwd_bound_ms(shape, 1, size) if backward
+                            else chip_smoke.modulation_bound_ms(shape, 1, size))
+                for name in names:
+                    plan, fn = fns[name]
+                    ms = sum(times[name]) / len(times[name])
+                    row = {"probe": "modulation", "variant": name, "shape": list(shape),
+                           "calls": calls, "dtype": str(dtype).split(".")[-1],
+                           "direction": "backward" if backward else "forward",
+                           "plan": None if plan is None else
+                           {k: plan[k] for k in ("route",) + spade_mod.PLAN_FIELDS},
+                           "ms": times[name], "bound_ms": bound, "bound_share": bound / ms}
+                    if name in floors:  # not the function: timed, not held
+                        rows.append(row)
+                        print(json.dumps(row), flush=True)
+                        continue
+                    launch = (lambda *a, fn=fn: fn())
+                    errs = chip_smoke.modulation_errors(
+                        spade_mod, x, gs, bs, g,
+                        fwd=None if backward else launch, bwd=launch if backward else None)
+                    row.update(errs)
+                    rows.append(row)
+                    print(json.dumps(row), flush=True)
+                    if not errs["ok"]:
+                        raise AssertionError(f"modulation variant {name} disagrees "
+                                             f"with the plain version: {row}")
+    # host time of one C call at the largest shape, bf16 forward
+    shape = max((s for s, _ in chip_smoke.MODULATION_SHAPES), key=lambda s: s[1] * s[2] * s[3])
+    x, gs, bs, _ = chip_smoke.modulation_inputs(shape, 1, torch.bfloat16, gen)
+    b, c, h, w = shape
+    lib = spade_mod._library()
+    out, mean = torch.empty_like(x), torch.empty((b, c), device=x.device)
+    rstd = torch.empty_like(mean)
+    fields = spade_mod._plan_fields(spade_mod.modulation_plan(b * c, h * w, x.dtype))
+    args = (x.data_ptr(), spade_mod._pointers(gs), spade_mod._pointers(bs), 1,
+            out.data_ptr(), mean.data_ptr(), rstd.data_ptr(), b * c, h * w, 1e-5, 1,
+            fields, torch.cuda.current_stream().cuda_stream)
+    hosts = {"as_built_c_call": lambda: lib.spade_modulation_fwd(*args),
+             "wrapper": lambda: spade_mod._launch_fwd(x, gs, bs, 1e-5)}
+    if base is not None:
+        hosts["baseline_c_call"] = base[2](x, gs, bs)
+    for name, fn in hosts.items():
+        row = {"probe": "modulation_host", "variant": name, "shape": list(shape),
+               "dtype": "bfloat16", "host_us": [host_us(fn) for _ in range(3)]}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    return rows
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", type=Path, default=None)
-    parser.add_argument("--probes", default="timer,correlation,resample2d",
-                        help="comma-separated: timer, correlation, resample2d")
+    parser.add_argument("--probes", default="timer,correlation,resample2d,modulation",
+                        help="comma-separated: timer, correlation, resample2d, "
+                             "modulation")
     parser.add_argument("--resample-baseline", type=Path, default=None,
                         help="an earlier csrc/resample2d.cu to time beside "
                              "the kernel as built")
     parser.add_argument("--correlation-baseline", type=Path, default=None,
                         help="an earlier csrc/correlation.cu to time beside "
                              "the kernel as built")
+    parser.add_argument("--modulation-baseline", type=Path, default=None,
+                        help="an earlier csrc/spade_modulation.cu (a C "
+                             "interface without a plan) to time beside the "
+                             "kernels as built")
     args = parser.parse_args()
     probes = set(args.probes.split(","))
-    if not probes <= {"timer", "correlation", "resample2d"}:
+    if not probes <= {"timer", "correlation", "resample2d", "modulation"}:
         parser.error(f"unknown probes in {args.probes!r}")
     if not torch.cuda.is_available():
         print("torch_kernel_probe: no CUDA device available", file=sys.stderr)
@@ -488,6 +693,8 @@ def main():
             rows += probe_correlation(gen, Path(tmp), args.correlation_baseline)
         if "resample2d" in probes:
             rows += probe_resample(gen, Path(tmp), args.resample_baseline)
+        if "modulation" in probes:
+            rows += probe_modulation(gen, Path(tmp), args.modulation_baseline)
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps({"nvidia_smi": smi, "rows": rows}, indent=1))

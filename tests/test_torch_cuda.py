@@ -6,8 +6,11 @@ Imports no JAX, so it also runs where only PyTorch is installed:
 
 (``--noconftest``: the suite's conftest.py sets up JAX.) Each kernel is
 held against its plain PyTorch version, including the paths the serving
-main paths do not take (planes larger than the shared-memory cache,
-ragged planes, the most (gamma, beta) pairs; odd warp sizes, one
+main paths do not take (spade_modulation: every path of its plan, at
+planes of 256, 1024, 4096 and 16384 elements, at and just past what the
+block path holds, a view 4 bytes past 16, a ragged plane, the most
+(gamma, beta) pairs, and every block plan and the stream plan at 64x64
+and 128x128; odd warp sizes, one
 channel, bf16 flows; odd maps, several column tiles and displacement
 groups, p other than 2), and its wrapper's refusals are checked. TF32
 is off. spade_modulation: fp32 tolerance 1e-4 (reduction order); bf16
@@ -34,7 +37,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from chip_smoke import at_offset, bf16_ulps, dx_term_scale
+from chip_smoke import MODULATION_EDGE, at_offset, bf16_ulps, dx_term_scale
 from imaginaire_tpu_torch.layers.activation_norm import SpatiallyAdaptiveNorm
 from imaginaire_tpu_torch.ops import build
 from imaginaire_tpu_torch.ops import channelnorm as cn
@@ -64,18 +67,33 @@ def _inputs(shape, n_pairs, dtype, device, seed=0):
             [draw(0.3) for _ in range(n_pairs)])
 
 
+# (shape, n_pairs, bytes x starts past a 16-byte boundary): the planes
+# of each path, then chip_smoke's edge cases (the scalar path, the
+# stream path, the block path's capacities, the most pairs at 128x128)
 MODULATION_CASES = [
-    ((2, 16, 64, 64), 1),    # plane cached in shared memory
-    ((1, 8, 256, 256), 2),   # plane larger than the cache: re-read path
-    ((3, 5, 7, 9), 4),       # ragged plane (63 elements), most pairs
-]
+    ((2, 16, 16, 16), 1, 0),     # 256 elements: warp path
+    ((2, 16, 16, 32), 1, 0),     # 512 elements: warp path, fp32's largest
+    ((2, 16, 32, 32), 2, 0),     # 1024 elements: bf16 warp path, its largest
+                                 # plane; fp32 a block of two warps
+    ((2, 16, 64, 64), 1, 0),     # 4096 elements: block path
+    ((1, 8, 128, 128), 2, 0),    # 16384 elements: block path (fp32 backward:
+                                 # cluster 2)
+    ((1, 2, 128, 256), 1, 0),    # 32768 elements: the bf16 forward's block
+                                 # capacity
+] + MODULATION_EDGE
+
+
+def _modulation_inputs(shape, n_pairs, offset, dtype, device):
+    x, gs, bs = _inputs(shape, n_pairs, dtype, device)
+    return at_offset(x, offset), gs, bs
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,n_pairs", MODULATION_CASES)
-def test_spade_modulation_kernel_matches_plain(cuda_device, shape, n_pairs, dtype):
-    x, gs, bs = _inputs(shape, n_pairs, dtype, cuda_device)
+@pytest.mark.parametrize("shape,n_pairs,offset", MODULATION_CASES)
+def test_spade_modulation_kernel_matches_plain(cuda_device, shape, n_pairs,
+                                               offset, dtype):
+    x, gs, bs = _modulation_inputs(shape, n_pairs, offset, dtype, cuda_device)
     before = spade_mod.launches
     with torch.no_grad():
         got = spade_mod.spade_modulation(x, gs, bs)
@@ -97,12 +115,12 @@ def test_spade_modulation_kernel_matches_plain(cuda_device, shape, n_pairs, dtyp
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,n_pairs", MODULATION_CASES)
+@pytest.mark.parametrize("shape,n_pairs,offset", MODULATION_CASES)
 def test_spade_modulation_backward_kernel_matches_plain(cuda_device, shape,
-                                                        n_pairs, dtype):
+                                                        n_pairs, offset, dtype):
     """Through autograd: dx and every dgamma from the backward kernel,
     every dbeta = g; held as chip_smoke.py holds them."""
-    x, gs, bs = _inputs(shape, n_pairs, dtype, cuda_device)
+    x, gs, bs = _modulation_inputs(shape, n_pairs, offset, dtype, cuda_device)
     g = _inputs(shape, 1, dtype, cuda_device, seed=1)[0]
     leaves = [t.requires_grad_(True) for t in (x, *gs, *bs)]
     before = (spade_mod.launches, spade_mod.bwd_launches)
@@ -131,21 +149,106 @@ def test_spade_modulation_backward_kernel_matches_plain(cuda_device, shape,
 @pytest.mark.cuda
 @pytest.mark.parametrize("bad,error", [
     ("pairs", ValueError), ("strided", ValueError), ("half", TypeError),
-    ("mixed", ValueError)])
+    ("mixed", ValueError), ("plan", RuntimeError),
+    ("misaligned_plan", RuntimeError), ("cluster_plan", RuntimeError),
+    ("backward_plan", RuntimeError)])
 def test_spade_modulation_wrapper_refuses(cuda_device, bad, error):
     x, gs, bs = _inputs((1, 2, 8, 8), 1, torch.float32, cuda_device)
+    call = lambda: spade_mod.spade_modulation(x, gs, bs)  # noqa: E731
     if bad == "pairs":
         gs, bs = gs * 5, bs * 5
     elif bad == "strided":
         x = x.transpose(2, 3)
     elif bad == "half":
         x, gs, bs = x.half(), [g.half() for g in gs], [b.half() for b in bs]
-    else:
+    elif bad == "mixed":
         gs = [gs[0].to(torch.bfloat16)]
-    before = spade_mod.launches
+    elif bad == "plan":  # a warp plan whose lanes cannot hold the plane
+        x, gs, bs = _inputs((1, 2, 64, 64), 1, torch.float32, cuda_device)
+        plan = dict(spade_mod.modulation_plan(2, 4096, torch.float32),
+                    path=spade_mod.PATHS["warp"], per_thread=4, threads=64,
+                    planes_per_block=2, grid=1)
+        call = lambda: spade_mod._launch_fwd(x, gs, bs, 1e-5, plan)  # noqa: E731
+    elif bad == "misaligned_plan":  # 16-byte vectors on a view 4 bytes past 16
+        x = at_offset(x, 4)
+        plan = spade_mod.modulation_plan(2, 64, torch.float32)
+        call = lambda: spade_mod._launch_fwd(x, gs, bs, 1e-5, plan)  # noqa: E731
+    elif bad == "cluster_plan":  # the forward splits no plane over a cluster
+        x, gs, bs = _inputs((1, 2, 128, 128), 1, torch.float32, cuda_device)
+        plan = dict(spade_mod.modulation_plan(2, 16384, torch.float32),
+                    cluster=2, threads=512, grid=4)
+        call = lambda: spade_mod._launch_fwd(x, gs, bs, 1e-5, plan)  # noqa: E731
+    else:  # a backward block plan of more threads than its register bound
+        x, gs, bs = _inputs((1, 2, 64, 64), 1, torch.float32, cuda_device)
+        mean, rstd = spade_mod.spade_modulation_stats_plain(x)
+        plan = dict(spade_mod.modulation_plan(2, 4096, torch.float32, backward=True),
+                    threads=1024, cluster=1, grid=2)
+        call = lambda: spade_mod._launch_bwd(x, gs, mean, rstd, x, plan)  # noqa: E731
+    before = (spade_mod.launches, spade_mod.bwd_launches)
     with pytest.raises(error):
-        spade_mod.spade_modulation(x, gs, bs)
-    assert spade_mod.launches == before
+        call()
+    assert (spade_mod.launches, spade_mod.bwd_launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("shape", [(2, 4, 64, 64), (2, 4, 128, 128)])
+def test_spade_modulation_block_plans_match_plain(cuda_device, shape, backward,
+                                                  dtype):
+    """Every cluster of the block path that can hold the plane, and the
+    stream path, launched through the C interface, against the plain
+    version: the cluster reduction and each vector instantiation the plan
+    may pick at these planes."""
+    x, gs, bs = _inputs(shape, 1, dtype, cuda_device)
+    g = _inputs(shape, 1, dtype, cuda_device, seed=1)[0]
+    b, c, h, w = shape
+    mean_p, rstd_p = spade_mod.spade_modulation_stats_plain(x)
+    dx_p, dgamma_p = spade_mod.spade_modulation_bwd_plain(x, gs, mean_p, rstd_p, g)
+    plans = []
+    for cluster in spade_mod.block_clusters(dtype, backward):
+        try:
+            plans.append(spade_mod.modulation_plan(b * c, h * w, dtype, 1,
+                                                   backward=backward, cluster=cluster))
+        except ValueError:
+            continue  # this cluster cannot hold the plane
+    stream = spade_mod.modulation_plan(b * c, h * w, dtype, 1, backward=backward)
+    plans.append(dict(stream, route="stream", path=spade_mod.PATHS["stream"],
+                      per_thread=0, cluster=1, planes_per_block=1, grid=b * c,
+                      threads=spade_mod.STREAM_THREADS))
+    assert len(plans) >= 2  # a block plan and the stream plan
+    for plan in plans:
+        block = (plan["route"], plan["cluster"])
+        if not backward:
+            got, mean, rstd = spade_mod._launch_fwd(x, gs, bs, 1e-5, plan)
+            torch.cuda.synchronize()
+            for got_s, want_s in zip((mean, rstd), (mean_p, rstd_p)):
+                assert ((got_s - want_s).abs().max() / want_s.abs().max()).item() <= 1e-5
+            if dtype == torch.float32:
+                want = spade_mod.spade_modulation_plain(x, gs, bs)
+                assert (got - want).abs().max().item() <= 1e-4, block
+            else:
+                want = spade_mod.spade_modulation_plain(x, gs, bs, stats=(mean, rstd))
+                assert bf16_ulps(got, want) <= 1.0, block
+        else:
+            dx, dgamma = spade_mod._launch_bwd(x, gs, mean_p, rstd_p, g, plan)
+            torch.cuda.synchronize()
+            if dtype == torch.float32:
+                assert ((dx - dx_p).abs().max() / dx_p.abs().max()).item() <= 1e-5, block
+                assert ((dgamma - dgamma_p).abs().max()
+                        / dgamma_p.abs().max()).item() <= 1e-6, block
+            else:
+                scale = dx_term_scale(x, gs, mean_p, rstd_p, g)
+                assert bf16_ulps(dx, dx_p, scale) <= 1.0, block
+                assert bf16_ulps(dgamma, dgamma_p) <= 1.0, block
+
+
+@pytest.mark.cuda
+def test_spade_modulation_kernels_do_not_spill(cuda_device):
+    lib = build.build_all([spade_mod.KERNEL])[spade_mod.KERNEL]
+    log = Path(f"{lib}.log").read_text()
+    spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", log)
+    assert spills and all(n == "0" for n in spills), log
 
 
 @pytest.mark.cuda
