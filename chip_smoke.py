@@ -56,7 +56,29 @@ Phases, one line each; any failure exits non-zero:
    to the same step through the plain composition, and the unmodified
    config (``sync_batch``: BatchNorm batch statistics, no kernel) takes
    two steps;
-8. a ``kernels`` JSON line, the nvidia-smi line, and the final JSON line.
+8. SPADE training entry (``spade_train_entry``): a seeded dataset of 8
+   items of the fixtures' size (300x320 RGB images, seg maps in 0..182,
+   edge maps) written as PNG through the port's encoder into a temporary
+   directory and packed by the port's builder; the same config and
+   overrides, its splits pointed there (a test split added like the val
+   split). ``imaginaire_tpu_torch.train.main`` trains 6 iterations
+   in-process (batch 4, 256x256, bf16, ``remat: blocks``; the launch
+   counters are reset just before and read just after: 57 forward and 19
+   backward an iteration, plus 19 forward for each generator forward of
+   the image snapshots), the losses in ``meters.jsonl`` are finite and
+   the checkpoint's files verify; a second ``main`` resumes to 8, every
+   restored tensor equal to the saved state bit for bit and its first
+   batch equal to an unbroken run's; one byte of the newest checkpoint is
+   flipped, ``load_latest_verified`` quarantines it and restores the
+   older (mid-epoch) one, and a third ``main`` resumes from that with the
+   same checks; ``imaginaire_tpu_torch.inference.main`` writes one
+   256x256 PNG a test item through the kernel. The median iteration (the
+   config's ``speed_benchmark``: each step ends in a device sync), images/s
+   over the loop's wall time data waits included, the host's data wait,
+   the main thread's and the other threads' CPU time and the garbage
+   collector's time an iteration, peak memory and the checkpoints' sizes
+   and times are printed;
+9. a ``kernels`` JSON line, the nvidia-smi line, and the final JSON line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -65,9 +87,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -238,6 +262,19 @@ TEACHER_CHECK_HW = (128, 256)
 # convolutions sum in other orders through ~100 layers
 TOL_TEACHER_REL = 1e-3
 TEACHER_PARAMS = 162_518_834
+
+# the training entry (phase 8): a seeded packed dataset of the fixtures'
+# size (rows, columns) trains 6 iterations, resumes to 8, survives a
+# corrupted checkpoint and feeds inference; snapshots every 7 iterations
+# (7 is mid-epoch: 8 items at batch 4 make 2 iterations an epoch), images
+# every 3 (each image snapshot runs G and its averaged copy once)
+ENTRY_ITEMS = 8
+ENTRY_HW = (300, 320)
+ENTRY_NUM_CLASSES = 183
+ENTRY_SEED = 0
+ENTRY_RUNS = (6, 8)
+ENTRY_OVERRIDES = {"snapshot_save_iter": 7, "logging_iter": 2,
+                   "image_save_iter": 3, "checkpoints_to_keep": 2}
 
 
 def phase(label, **fields):
@@ -852,6 +889,356 @@ def spade_train_path(spade_mod):
     return row
 
 
+def write_entry_dataset(root, items=ENTRY_ITEMS, hw=ENTRY_HW, seed=ENTRY_SEED):
+    """Seeded RGB images, seg maps (0..182) and edge maps (0/255) as PNG
+    through the port's encoder, packed by the port's builder."""
+    from imaginaire_tpu_torch.data.backends import build_packed_dataset
+    from imaginaire_tpu_torch.data.png import write_png
+
+    rng = np.random.RandomState(seed)
+    raw = root / "raw"
+    for i in range(items):
+        arrays = {"images": rng.randint(0, 256, hw + (3,)),
+                  "seg_maps": rng.randint(0, ENTRY_NUM_CLASSES, hw),
+                  "edge_maps": (rng.rand(*hw) < 0.1) * 255}
+        for data_type, arr in arrays.items():
+            (raw / data_type / "seq0001").mkdir(parents=True, exist_ok=True)
+            write_png(raw / data_type / "seq0001" / f"{i:05d}.png", arr.astype(np.uint8))
+    return build_packed_dataset(str(raw), str(root / "packed"),
+                                ["images", "seg_maps", "edge_maps"])
+
+
+def entry_config(root, packed, overrides=None):
+    """The COCO-Stuff config with phase 7's two overrides, its splits
+    pointed at the packed dataset, a test split like its val split, the
+    short cadences and ``speed_benchmark``; written as YAML for
+    ``--config``."""
+    import yaml
+
+    from imaginaire_tpu_torch.config import load_yaml, recursive_update
+
+    cfg = load_yaml(CONFIG)
+    cfg["gen"]["activation_norm_params"]["activation_norm_type"] = "instance"
+    cfg["trainer"]["perceptual_loss"]["allow_random_init"] = True
+    for split in ("train", "val"):
+        cfg["data"][split]["roots"] = [packed]
+    cfg["test_data"] = {key: cfg["data"][key] for key in
+                        ("name", "type", "num_workers", "input_types",
+                         "input_image", "input_labels")}
+    cfg["test_data"]["test"] = dict(cfg["data"]["val"], roots=[packed])
+    cfg.update(ENTRY_OVERRIDES)
+    # the loop records its timings (each step ends in a device sync)
+    cfg["trainer"]["speed_benchmark"] = True
+    recursive_update(cfg, overrides or {})
+    path = root / "config.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def unbroken_batch(cfg_path, epoch, offset):
+    """The batch an uninterrupted run takes ``offset`` batches into
+    ``epoch`` (an offset past the epoch rolls into the next one)."""
+    from imaginaire_tpu_torch.config import Config
+    from imaginaire_tpu_torch.data import get_train_and_val_dataloader
+
+    loader, _ = get_train_and_val_dataloader(Config(cfg_path), seed=ENTRY_SEED)
+    epoch, offset = epoch + offset // len(loader), offset % len(loader)
+    loader.set_epoch(epoch)
+    for i, batch in enumerate(loader):
+        if i == offset:
+            return batch
+    raise AssertionError(f"epoch {epoch} has no batch {offset}")
+
+
+def same_batch(a, b):
+    return a.keys() == b.keys() and all(
+        np.array_equal(a[k], b[k]) if isinstance(a[k], np.ndarray) else a[k] == b[k]
+        for k in a)
+
+
+def resumed_run(trainer_cls, args, saved, cfg_path):
+    """``train.main(args)`` resuming from the logdir, recording what it
+    restored and the first batch it trains on. ``saved``: {path: tensor}
+    the restored state must equal bit for bit."""
+    from imaginaire_tpu_torch import train
+
+    record = {}
+    load, start = trainer_cls.load_checkpoint, trainer_cls.start_of_iteration
+
+    def load_and_compare(self, *a, **k):
+        loaded = load(self, *a, **k)
+        state = self.state_tensors()
+        record.update(iteration=self.current_iteration, epoch=self.current_epoch,
+                      offset=self.resume_batch_in_epoch,
+                      compared=len(saved), keys_differ=sorted(set(state) ^ set(saved)),
+                      mismatched=[key for key, v in saved.items() if key in state
+                                  and not torch.equal(state[key].cpu(), v.cpu())])
+        return loaded
+
+    def first_batch(self, data, it):
+        if it == record.get("iteration") and "batch" not in record:
+            record["batch"] = {k: (v.copy() if isinstance(v, np.ndarray) else v)
+                               for k, v in data.items()}
+        return start(self, data, it)
+
+    trainer_cls.load_checkpoint, trainer_cls.start_of_iteration = load_and_compare, first_batch
+    try:
+        trainer = train.main(args)
+    finally:
+        trainer_cls.load_checkpoint, trainer_cls.start_of_iteration = load, start
+    want = unbroken_batch(cfg_path, record["epoch"], record["offset"])
+    if record["keys_differ"] or record["mismatched"] or "batch" not in record \
+            or not same_batch(record["batch"], want):
+        raise AssertionError(
+            f"resume from iteration {record.get('iteration')}: keys differ "
+            f"{record['keys_differ'][:5]}, tensors differ {record['mismatched'][:5]} "
+            f"of {len(saved)}, first batch {record.get('batch', {}).get('key')} "
+            f"vs an unbroken run's {want['key']}")
+    return trainer, record
+
+
+class HostClocks:
+    """Per-iteration host accounting of the training loop: wall time,
+    the main thread's CPU time, the whole process's CPU time (the loader
+    threads and any other thread) and the time in Python's garbage
+    collector, each from the end of ``start_of_iteration`` (the batch's
+    copies queued) to the start of ``end_of_iteration``. Installed on the
+    trainer class for the ``with`` block."""
+
+    def __init__(self, trainer_cls):
+        self.cls, self.steps, self.gc_s, self._gc_t0 = trainer_cls, [], 0.0, None
+
+    def now(self):
+        return (time.perf_counter(), time.thread_time(), time.process_time(), self.gc_s)
+
+    def _gc(self, stage, info):
+        if stage == "start":
+            self._gc_t0 = time.perf_counter()
+        elif self._gc_t0 is not None:
+            self.gc_s += time.perf_counter() - self._gc_t0
+
+    def __enter__(self):
+        import gc
+
+        start, end = self.cls.start_of_iteration, self.cls.end_of_iteration
+        self._saved, begun = (start, end), []
+
+        def timed_start(trainer, *a, **k):
+            data = start(trainer, *a, **k)
+            begun.append(self.now())
+            return data
+
+        def timed_end(trainer, *a, **k):
+            t = self.now()
+            if begun:
+                self.steps.append([y - x for x, y in zip(begun.pop(), t)])
+            return end(trainer, *a, **k)
+
+        self.cls.start_of_iteration, self.cls.end_of_iteration = timed_start, timed_end
+        gc.callbacks.append(self._gc)
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._gc)
+        self.cls.start_of_iteration, self.cls.end_of_iteration = self._saved
+
+    def table(self):
+        wall, main, process, gc_s = (np.asarray(x) * 1e3 for x in zip(*self.steps))
+        return {"step_wall_ms": wall.tolist(), "main_thread_cpu_ms": main.tolist(),
+                "other_threads_cpu_ms": (process - main).tolist(),
+                "gc_ms": gc_s.tolist()}
+
+
+def spade_train_entry(spade_mod, device="cuda", overrides=None, items=ENTRY_ITEMS,
+                      hw=ENTRY_HW, out_hw=(256, 256)):
+    """Phase 8: ``python -m imaginaire_tpu_torch.train`` and ``.inference``
+    in-process on a seeded packed dataset of the COCO-Stuff config's
+    shapes: train, resume, a corrupted checkpoint, inference."""
+    from imaginaire_tpu_torch import inference, train
+    from imaginaire_tpu_torch.data.png import decode_png
+    from imaginaire_tpu_torch.resilience.integrity import verify_files
+    from imaginaire_tpu_torch.trainers import base as trainer_base
+    from imaginaire_tpu_torch.trainers.spade import Trainer
+    from imaginaire_tpu_torch.utils import checkpoint as ckpt_lib
+    from imaginaire_tpu_torch.utils.meters import ScalarWriter
+
+    cuda = device == "cuda"
+    torch.backends.cudnn.allow_tf32 = True  # training runs the defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with tempfile.TemporaryDirectory(prefix="spade_train_entry_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        packed = write_entry_dataset(tmp, items, hw)
+        data_s = time.perf_counter() - t0
+        cfg_path = entry_config(tmp, packed, overrides)
+        logdir = tmp / "log"
+        args = ["--config", str(cfg_path), "--logdir", str(logdir),
+                "--seed", str(ENTRY_SEED), "--device", device]
+
+        # 1. train
+        saves = []
+        save = Trainer.save_checkpoint
+
+        def timed_save(self, *a, **k):
+            t = time.perf_counter()
+            path = save(self, *a, **k)
+            saves.append(time.perf_counter() - t)
+            return path
+
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        import gc
+        import threading
+
+        # the profiles of phases 4-7 leave ~0.9 M objects, most of them
+        # cyclic garbage that only a full collection frees: left alone, the
+        # first one lands inside an entry iteration (1.18 s of 1.82 s on
+        # the H100), a cost of this script and not of the entry
+        gc.collect()
+        census = {"threads": threading.active_count(), "gc_objects": len(gc.get_objects())}
+        spade_mod.launches = spade_mod.bwd_launches = 0
+        Trainer.save_checkpoint = timed_save
+        try:
+            with HostClocks(Trainer) as clocks:
+                t0 = time.perf_counter()
+                trainer = train.main(args + ["--max_iter", str(ENTRY_RUNS[0])])
+                train_s = time.perf_counter() - t0
+        finally:
+            Trainer.save_checkpoint = save
+        launches = {"forward": spade_mod.launches, "backward": spade_mod.bwd_launches}
+        peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else "not measured"
+        n_images = len(list((logdir / "images").glob("*.png")))
+        want = {"forward": ENTRY_RUNS[0] * TRAIN_FWD_LAUNCHES
+                + n_images * 2 * CALLS_PER_FORWARD,
+                "backward": ENTRY_RUNS[0] * TRAIN_BWD_LAUNCHES}
+        if launches != want or trainer.compute_dtype != torch.bfloat16 \
+                or n_images != ENTRY_RUNS[0] // ENTRY_OVERRIDES["image_save_iter"]:
+            raise AssertionError(f"training entry launches {launches}, expected "
+                                 f"{want} ({n_images} image snapshots); compute "
+                                 f"dtype {trainer.compute_dtype}")
+        scalars = [r for r in ScalarWriter(logdir).read() if r["kind"] == "counter"
+                   and r["name"].split("/")[0] in ("gen_update", "dis_update")]
+        bad = [r for r in scalars if not np.isfinite(r["value"])
+               or r["name"].endswith("nonfinite_count")]
+        if len(scalars) < 2 or bad:
+            raise AssertionError(f"meters.jsonl: {len(scalars)} loss scalars, "
+                                 f"non-finite {bad[:5]}")
+        saved = {k: v.detach().cpu().clone() for k, v in trainer.state_tensors().items()}
+        timings = {k: list(v) for k, v in trainer.timings.items()}
+        del trainer
+        if cuda:
+            torch.cuda.empty_cache()
+        # the pointed checkpoint's files verify against its sidecar (the
+        # resume below holds its tensors to the final state bit for bit)
+        path6 = ckpt_lib.latest_checkpoint_path(str(logdir))
+        integrity = ckpt_lib.read_integrity_sidecar(path6)
+        t0 = time.perf_counter()
+        verify_files(path6, integrity["files"], context=path6)
+        verify_s = time.perf_counter() - t0
+        if ckpt_lib.parse_checkpoint_name(path6)[1] != ENTRY_RUNS[0] \
+                or integrity["n_leaves"] != len(saved):
+            raise AssertionError(f"checkpoint {path6}: {integrity['n_leaves']} "
+                                 f"tensor records for {len(saved)} tensors")
+
+        # 2. resume: every restored tensor bit for bit, the next batch
+        spade_mod.launches = spade_mod.bwd_launches = 0
+        t0 = time.perf_counter()
+        trainer, resume = resumed_run(Trainer, args + ["--max_iter", str(ENTRY_RUNS[1])],
+                                      saved, cfg_path)
+        resume_s = time.perf_counter() - t0
+        resume_launches = {"forward": spade_mod.launches,
+                           "backward": spade_mod.bwd_launches}
+        n = ENTRY_RUNS[1] - ENTRY_RUNS[0]
+        if resume["iteration"] != ENTRY_RUNS[0] or trainer.current_iteration != ENTRY_RUNS[1] \
+                or resume_launches != {"forward": n * TRAIN_FWD_LAUNCHES,
+                                       "backward": n * TRAIN_BWD_LAUNCHES}:
+            raise AssertionError(f"resume at {resume['iteration']} to "
+                                 f"{trainer.current_iteration}, launches {resume_launches}")
+        del trainer, saved
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # 3. a corrupted newest checkpoint: quarantined, the older one loads
+        newest = ckpt_lib.latest_checkpoint_path(str(logdir))
+        older = ckpt_lib.scan_checkpoints(str(logdir))[-2][2]
+        with open(Path(newest) / ckpt_lib.STATE_FILE, "r+b") as f:
+            f.seek(f.seek(0, 2) // 2)
+            byte = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        payload, restored, fallbacks = ckpt_lib.load_latest_verified(str(logdir))
+        if fallbacks != 1 or restored != os.path.abspath(older) or Path(newest).exists() \
+                or not Path(newest + ".corrupt").is_dir():
+            raise AssertionError(f"corrupted {newest}: restored {restored} after "
+                                 f"{fallbacks} fallbacks, expected {older}")
+        # ... and the run resumes from it, mid-epoch
+        trainer, fallback_resume = resumed_run(
+            Trainer, args + ["--max_iter", str(ENTRY_RUNS[1])], payload["state"], cfg_path)
+        if fallback_resume["offset"] == 0 or trainer.current_iteration != ENTRY_RUNS[1]:
+            raise AssertionError(f"fallback resume {fallback_resume}")
+        del trainer, payload
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # 4. inference over the test split: one PNG an item
+        out_dir = tmp / "inference"
+        images = []
+        to_image = trainer_base.tensor2im
+
+        def recording(img, *a, **k):
+            images.append(np.asarray(img))
+            return to_image(img, *a, **k)
+
+        spade_mod.launches = 0
+        trainer_base.tensor2im = recording
+        try:
+            t0 = time.perf_counter()
+            inference.main(["--config", str(cfg_path), "--logdir", str(logdir),
+                            "--output_dir", str(out_dir), "--device", device])
+            inference_s = time.perf_counter() - t0
+        finally:
+            trainer_base.tensor2im = to_image
+        pngs = sorted(out_dir.rglob("*.png"))
+        batches = -(-items // 4)
+        shapes = {decode_png(p.read_bytes()).shape for p in pngs}
+        if len(pngs) != items or len(images) != items or spade_mod.launches != \
+                batches * CALLS_PER_FORWARD or shapes != {tuple(out_hw) + (3,)} \
+                or not all(np.isfinite(i).all() and np.abs(i).max() <= 1 for i in images):
+            raise AssertionError(f"inference: {len(pngs)} PNGs of {shapes}, "
+                                 f"{spade_mod.launches} launches")
+    ms = {k: [t * 1e3 for t in v] for k, v in timings.items()}
+    median_ms = float(np.median(ms["iteration"]))
+    # the loop's wall time after the first iteration (kernel build, cuDNN's
+    # picks): each batch's data wait and its iteration, less only the
+    # image snapshots and meter flushes that end_of_iteration runs after
+    # its clock (every 3 and 2 iterations here, far above a real run's)
+    window_s = sum(ms["data_wait"][1:] + ms["iteration"][1:]) / 1e3
+    row = {"items": items, "hw": list(hw), "batch": 4, "data_s": data_s,
+           "train_s": train_s, "iterations": ENTRY_RUNS[0],
+           "iteration_ms": ms["iteration"], "median_iteration_ms": median_ms,
+           "images_per_s": 4 * (ENTRY_RUNS[0] - 1) / window_s, "window_s": window_s,
+           "step_only_images_per_s": 4 / (median_ms / 1e3),
+           "dis_step_ms": ms["dis_step"], "gen_step_ms": ms["gen_step"],
+           "data_wait_ms": ms["data_wait"], "loader_wait_ms": ms["loader_wait"],
+           "median_data_wait_ms": float(np.median(ms["data_wait"])),
+           "host": dict(census, **clocks.table()),
+           "peak_mem_gib": peak, "launches": launches, "image_snapshots": n_images,
+           "launches_per_iteration": {"forward": TRAIN_FWD_LAUNCHES,
+                                      "backward": TRAIN_BWD_LAUNCHES},
+           "checkpoint_bytes": sum(integrity["files"][f]["size"] for f in integrity["files"]),
+           "checkpoint_save_s": saves, "checkpoint_files_verify_s": verify_s,
+           "resume_s": resume_s, "resumed_at": resume["iteration"],
+           "resume_launches": resume_launches, "tensors_compared": resume["compared"],
+           "corrupted": Path(newest).name, "fell_back_to": Path(restored).name,
+           "fallback_resume_offset": fallback_resume["offset"],
+           "inference_s": inference_s, "inference_images": len(pngs),
+           "inference_launches": spade_mod.launches}
+    phase("spade_train_entry", **row)
+    return row
+
+
 def one_hot_frame(rng):
     idx = rng.randint(0, V2V_LABELS, (1,) + V2V_HW)
     label = np.zeros((1,) + V2V_HW + (V2V_LABELS,), np.float32)
@@ -1349,6 +1736,7 @@ def main():
     rs_rows[0]["flows"]["vid2vid"] = v2v["resample2d_path_flow"]
     teacher = teacher_path(corr, cn, rs)
     train = spade_train_path(spade_mod)
+    entry = spade_train_entry(spade_mod)
 
     def per_call_set(table, dtype):
         sel = [r for r in table if r["dtype"].startswith(dtype)]
@@ -1406,6 +1794,7 @@ def main():
              "correlation": corr_rows, "channelnorm": cn_rows,
              "main_path": main, "vid2vid_path": v2v, "teacher_path": teacher,
              "modulation_bwd": bwd_rows, "spade_train_path": train,
+             "spade_train_entry": entry,
              "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)

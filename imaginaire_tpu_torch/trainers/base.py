@@ -30,13 +30,29 @@ A non-finite total loss or gradient norm leaves the parameters, the
 optimizer state and the network's state as they were
 (``diagnostics.on_nonfinite``: ``halt`` raises ``NonFiniteLossError``,
 ``skip`` goes on); the JAX package's ``rollback`` is not ported.
+
+The loop (``train.py``): ``start_of_epoch``, ``start_of_iteration`` (the
+loader's NHWC numpy to NCHW tensors on the device, through pinned host
+memory and non-blocking copies), ``end_of_iteration`` and
+``end_of_epoch`` with the JAX package's ``logging_iter``,
+``snapshot_save_iter``, ``snapshot_save_epoch`` and ``image_save_iter``
+cadences, the losses' meters (``utils/meters.py``, written to
+``<logdir>/meters.jsonl``), checkpoints (``utils/checkpoint.py``) and
+``test``. A checkpoint holds everything the next step reads: G, D and the
+averaged copy with their buffers (spectral-norm ``u``, BatchNorm
+statistics), the loss networks' weights, both optimizers' moments and
+update counts (the lr schedules are functions of the count), the noise
+generators' states, the EMA's update count, and the loop's
+epoch, iteration and batch within the epoch.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 
+import numpy as np
 import torch
 
 from imaginaire_tpu_torch.config import as_attrdict, cfg_get
@@ -47,9 +63,16 @@ from imaginaire_tpu_torch.layers.state import (
 )
 from imaginaire_tpu_torch.optim.optimizers import get_optimizer_for_params
 from imaginaire_tpu_torch.registry import resolve
+from imaginaire_tpu_torch.utils import checkpoint as ckpt_lib
 from imaginaire_tpu_torch.utils.init_weight import init_weights
+from imaginaire_tpu_torch.utils.meters import Meter, ScalarWriter
 from imaginaire_tpu_torch.utils.misc import resolve_device
 from imaginaire_tpu_torch.utils.model_average import ema_init, ema_update
+from imaginaire_tpu_torch.utils.visualization import (
+    save_image_grid,
+    save_tensor_strip,
+    tensor2im,
+)
 
 NONFINITE_POLICIES = ("halt", "skip")
 
@@ -103,7 +126,18 @@ class BaseTrainer:
         self.ema_G = None
         self.net_D = None
         self.train = bool(train)
-        self.timings = {"gen_step": [], "dis_step": []}
+        self.timings = {"gen_step": [], "dis_step": [], "loader_wait": [],
+                        "data_wait": [], "iteration": []}
+        self.current_epoch = 0
+        self.current_iteration = 0
+        # batches of the current epoch consumed before a resume: the loop
+        # fast-forwards the loader past them
+        self.resume_batch_in_epoch = 0
+        self._epoch_start_iteration = 0
+        self.start_iteration_time = self.start_epoch_time = time.perf_counter()
+        logdir = cfg_get(cfg, "logdir", None)
+        self.writer = ScalarWriter(logdir) if logdir else None
+        self.meters = {}
         if self.train:
             self._init_training(cfg, iters_per_epoch)
 
@@ -293,6 +327,7 @@ class BaseTrainer:
         losses = self._step(self.net_G, self.opt_G,
                             lambda: self.gen_forward(data, noise)[0],
                             self.clip_grad_norm_G, "gen_step")
+        self._log_losses("gen_update", losses)
         return losses
 
     def dis_update(self, data, noise=None):
@@ -304,6 +339,274 @@ class BaseTrainer:
         data = self._prepare(data)
         if noise is None:
             noise = self._draw_noise(data, self.dis_rng)
-        return self._step(self.net_D, self.opt_D,
-                          lambda: self.dis_forward(data, noise),
-                          self.clip_grad_norm_D, "dis_step")
+        losses = self._step(self.net_D, self.opt_D,
+                            lambda: self.dis_forward(data, noise),
+                            self.clip_grad_norm_D, "dis_step")
+        self._log_losses("dis_update", losses)
+        return losses
+
+    # ------------------------------------------------------------- the loop
+
+    def start_of_epoch(self, current_epoch):
+        self.current_epoch = current_epoch
+        self.start_epoch_time = time.perf_counter()
+        # after a mid-epoch resume the epoch began resume_batch_in_epoch
+        # iterations before this one
+        self._epoch_start_iteration = (self.current_iteration
+                                       - int(self.resume_batch_in_epoch or 0))
+        self.resume_batch_in_epoch = 0
+
+    def start_of_iteration(self, data, current_iteration):
+        """The host hook (``_start_of_iteration``), then the batch's
+        arrays to tensors on the device, NHWC arrays as NCHW, through
+        pinned host memory and non-blocking copies on a CUDA device.
+        Entries that are not arrays (sample keys) pass through. The
+        iteration's time (``end_of_iteration``) starts after the copies
+        are queued."""
+        data = self._to_device(self._start_of_iteration(data, current_iteration))
+        self.current_iteration = current_iteration
+        self.start_iteration_time = time.perf_counter()
+        return data
+
+    def _to_device(self, data):
+        cuda = self.device.type == "cuda"
+        out = {}
+        for key, value in data.items():
+            if not isinstance(value, np.ndarray) or value.dtype == object:
+                out[key] = value
+                continue
+            t = torch.from_numpy(np.ascontiguousarray(value))
+            if cuda:
+                t = t.pin_memory()
+            t = t.to(self.device, non_blocking=cuda)
+            if t.ndim == 4:
+                t = t.permute(0, 3, 1, 2).contiguous()
+            out[key] = t
+        return out
+
+    def end_of_iteration(self, data, current_epoch, current_iteration):
+        self.current_epoch = current_epoch
+        self.current_iteration = current_iteration
+        self.time_iteration = time.perf_counter() - self.start_iteration_time
+        if self.speed_benchmark:
+            self.timings["iteration"].append(self.time_iteration)
+        cfg = self.cfg
+        if current_iteration % cfg_get(cfg, "logging_iter", 100) == 0:
+            self._meter("time/iteration").write(self.time_iteration)
+            self._flush_meters(current_iteration)
+        if current_iteration % cfg_get(cfg, "snapshot_save_iter", 10000) == 0:
+            self.save_checkpoint(current_epoch, current_iteration)
+        if current_iteration % cfg_get(cfg, "image_save_iter", 10000) == 0:
+            self.save_image(self._image_path(current_iteration), data)
+
+    def end_of_epoch(self, data, current_epoch, current_iteration):
+        self.current_epoch = current_epoch
+        self.current_iteration = current_iteration
+        self.time_epoch = time.perf_counter() - self.start_epoch_time
+        print(f"Epoch: {current_epoch}, total time: {self.time_epoch:6f}.")
+        if current_epoch % cfg_get(self.cfg, "snapshot_save_epoch", 20) == 0:
+            self.save_checkpoint(current_epoch, current_iteration)
+
+    def _start_of_iteration(self, data, current_iteration):
+        """Host-side batch hook (numpy in, numpy out)."""
+        return data
+
+    def _get_visualizations(self, data):
+        return None
+
+    # ---------------------------------------------------------- checkpoints
+
+    def _optimizers(self):
+        return [(key, opt, net) for key, opt, net in
+                (("opt_G", getattr(self, "opt_G", None), self.net_G),
+                 ("opt_D", getattr(self, "opt_D", None), self.net_D))
+                if opt is not None]
+
+    def state_tensors(self):
+        """The flat {path: tensor} state a checkpoint holds."""
+        out = {}
+        for prefix, module in (("net_G", self.net_G), ("net_D", self.net_D)):
+            if module is not None:
+                out.update({f"{prefix}/{k}": v for k, v in module.state_dict().items()})
+        if self.ema_G is not None:
+            out.update({f"ema_G/{k}": v for k, v in self.ema_G.items()})
+        if not self.train:
+            return out
+        if getattr(self, "perceptual", None) is not None:
+            out.update({f"loss/perceptual/{k}": v
+                        for k, v in self.perceptual.module.state_dict().items()})
+        for key, opt, net in self._optimizers():
+            names = [n for n, _ in net.named_parameters()]
+            out.update({f"{key}/mu/{n}": t for n, t in zip(names, opt.mu)})
+            out.update({f"{key}/nu/{n}": t for n, t in zip(names, opt.nu)})
+            out[f"{key}/count"] = torch.tensor(opt.count, dtype=torch.int64)
+        out["gen_rng"] = self.gen_rng.get_state()
+        out["dis_rng"] = self.dis_rng.get_state()
+        out["num_ema_updates"] = torch.tensor(self.num_ema_updates, dtype=torch.int64)
+        return out
+
+    @torch.no_grad()
+    def load_state_tensors(self, state, resume=True):
+        """Copy a checkpoint's tensors into the trainer: the networks and
+        the averaged copy always; with ``resume`` (on a training trainer)
+        also the loss networks, the optimizers, the generators' states and
+        the counters. Every tensor the trainer expects is matched first:
+        one the checkpoint lacks, or holds in another shape, raises before
+        anything is copied."""
+        pairs = []
+
+        def match(prefix, named):
+            for name, t in named.items():
+                src = state.get(f"{prefix}/{name}")
+                if src is None or tuple(src.shape) != tuple(t.shape):
+                    raise KeyError(f"checkpoint has no {prefix}/{name} of shape "
+                                   f"{tuple(t.shape)}")
+                pairs.append((t, src))
+
+        match("net_G", self.net_G.state_dict())
+        if self.net_D is not None and any(k.startswith("net_D/") for k in state):
+            match("net_D", self.net_D.state_dict())
+        if self.ema_G is not None:
+            match("ema_G", self.ema_G)
+        resume = resume and self.train
+        if resume:
+            if getattr(self, "perceptual", None) is not None:
+                match("loss/perceptual", self.perceptual.module.state_dict())
+            for key, opt, net in self._optimizers():
+                names = [n for n, _ in net.named_parameters()]
+                match(f"{key}/mu", dict(zip(names, opt.mu)))
+                match(f"{key}/nu", dict(zip(names, opt.nu)))
+            counters = ["gen_rng", "dis_rng", "num_ema_updates"]
+            counters += [f"{key}/count" for key, _, _ in self._optimizers()]
+            missing = [k for k in counters if k not in state]
+            if missing:
+                raise KeyError(f"checkpoint has no {missing}")
+        for dst, src in pairs:
+            dst.copy_(src)
+        if not resume:
+            return
+        for key, opt, _ in self._optimizers():
+            opt.count = int(state[f"{key}/count"])
+        self.gen_rng.set_state(state["gen_rng"].cpu())
+        self.dis_rng.set_state(state["dis_rng"].cpu())
+        self.num_ema_updates = int(state["num_ema_updates"])
+
+    def save_checkpoint(self, current_epoch, current_iteration):
+        logdir = cfg_get(self.cfg, "logdir", ".")
+        meta = {"epoch": int(current_epoch), "iteration": int(current_iteration),
+                "batch_in_epoch": int(current_iteration - self._epoch_start_iteration)}
+        path = ckpt_lib.save_checkpoint(
+            logdir, self.state_tensors(), meta, current_epoch, current_iteration,
+            max_to_keep=cfg_get(self.cfg, "checkpoints_to_keep", None))
+        print(f"Save checkpoint to {path}")
+        return path
+
+    def load_checkpoint(self, checkpoint_path=None, fallback=False):
+        """An explicit path loads the weights only; with no path, the
+        logdir's pointer resumes the run (verified, with fallback to the
+        newest checkpoint that verifies). ``fallback`` lets an explicit
+        path whose bytes are corrupt be quarantined and the newest
+        verifiable checkpoint in its directory load instead. Returns
+        False when there is nothing to load."""
+        if self.state is None:
+            raise RuntimeError("init_state() before load_checkpoint()")
+        logdir = cfg_get(self.cfg, "logdir", ".")
+        resume = checkpoint_path is None
+        if resume:
+            payload, checkpoint_path, fallbacks = ckpt_lib.load_latest_verified(
+                logdir, map_location=self.device)
+            if payload is None:
+                print("No checkpoint found.")
+                return False
+            if fallbacks:
+                print(f"Checkpoint fallback: restored {checkpoint_path} after "
+                      f"quarantining {fallbacks} corrupt checkpoint(s)")
+        else:
+            try:
+                payload = ckpt_lib.load_checkpoint(checkpoint_path,
+                                                   map_location=self.device)
+            except Exception as e:
+                if not fallback or not ckpt_lib.is_corrupt_checkpoint_error(e):
+                    raise
+                print(f"WARNING: checkpoint {checkpoint_path} failed to restore "
+                      f"({type(e).__name__}: {str(e)[:200]}); falling back to the "
+                      "newest verifiable checkpoint in its directory")
+                ckpt_lib.quarantine_checkpoint(checkpoint_path,
+                                               reason=type(e).__name__)
+                payload, checkpoint_path, _ = ckpt_lib.load_latest_verified(
+                    os.path.dirname(os.path.abspath(str(checkpoint_path))),
+                    map_location=self.device)
+                if payload is None:
+                    raise RuntimeError("no verifiable fallback checkpoint beside "
+                                       f"{checkpoint_path}") from e
+        self.load_state_tensors(payload["state"], resume=resume)
+        if resume:
+            meta = payload["meta"]
+            self.current_epoch = int(meta["epoch"])
+            self.current_iteration = int(meta["iteration"])
+            self.resume_batch_in_epoch = int(meta.get("batch_in_epoch", 0))
+        self.checkpoint_path = checkpoint_path
+        print(f"Done with loading the checkpoint {checkpoint_path} "
+              f"(resume={resume}).")
+        return True
+
+    # ---------------------------------------------------------- inference
+
+    def _inference_data(self, data):
+        return data
+
+    def _generate(self, data, params, generator, random_style):
+        """G's fake images for ``data`` under ``params`` (None: G's own
+        parameters and buffers), the noise drawn from ``generator``."""
+        kwargs = {"random_style": random_style, "generator": generator}
+        if params is None:
+            return self.net_G(data, **kwargs)["fake_images"]
+        return torch.func.functional_call(self.net_G, params, (data,), kwargs)["fake_images"]
+
+    @torch.no_grad()
+    def test(self, data_loader, output_dir, inference_args=None):
+        """One image a test item, ``<output_dir>/<key>.png``, from the
+        inference weights; batch ``it``'s noise is drawn from a generator
+        seeded with ``it``."""
+        os.makedirs(output_dir, exist_ok=True)
+        inference_args = dict(inference_args or {})
+        random_style = bool(inference_args.get("random_style", False))
+        params = self.inference_params()
+        for it, data in enumerate(data_loader):
+            data = self._inference_data(self.start_of_iteration(data, -1))
+            generator = torch.Generator(device=self.device).manual_seed(it)
+            images = self._generate(data, params, generator, random_style)
+            images = images.float().permute(0, 2, 3, 1).cpu().numpy()
+            keys = data.get("key", [f"{it:06d}_{i}" for i in range(images.shape[0])])
+            for img, name in zip(images, keys):
+                path = os.path.join(output_dir, f"{name}.png")
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                save_image_grid([tensor2im(img)], path)
+
+    def save_image(self, path, data):
+        vis = self._get_visualizations(data)
+        if vis is None:
+            return
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        save_tensor_strip(vis, path)
+        print(f"Save output images to {path}")
+
+    def _image_path(self, iteration):
+        return os.path.join(cfg_get(self.cfg, "logdir", "."), "images",
+                            f"{iteration:09d}.png")
+
+    # ------------------------------------------------------------- meters
+
+    def _meter(self, name):
+        if name not in self.meters:
+            self.meters[name] = Meter(name, self.writer)
+        return self.meters[name]
+
+    def _log_losses(self, update_type, losses):
+        # values stay on the device until the meters flush
+        for name, value in losses.items():
+            self._meter(f"{update_type}/{name}").write(value)
+
+    def _flush_meters(self, step):
+        for meter in self.meters.values():
+            meter.flush(step)

@@ -7,6 +7,9 @@ multiple, and defines the SPADE losses: hinge GAN, VGG19 perceptual,
 feature matching and the style encoder's Gaussian KL, at the config's
 weights. The G noise (the style encoder's VAE eps) of a step is drawn
 from the trainer's ``gen_rng`` / ``dis_rng`` generators, or injected.
+For the loop it folds 5-D batches into label channels
+(``_start_of_iteration``) and draws the image snapshots
+(``_get_visualizations``).
 """
 
 from __future__ import annotations
@@ -131,6 +134,45 @@ class Trainer(BaseTrainer):
         out = dict(data, label=onehot)
         out.pop("label_float", None)
         return out
+
+    def _start_of_iteration(self, data, current_iteration):
+        """Fold 5-D (N, T, H, W, C) batches into label channels (the
+        previous frames' images after the labels; the last frame's image
+        is the target), then round H and W to the generator's base."""
+        label = np.asarray(data["label"])
+        if label.ndim == 5:
+            images = np.asarray(data["images"])
+            prev = images[:, :-1]
+            n, tm1, h, w, c = prev.shape
+            label_image = prev.transpose(0, 2, 3, 1, 4).reshape(n, h, w, tm1 * c)
+            label_flat = label.transpose(0, 2, 3, 1, 4).reshape(
+                n, h, w, label.shape[1] * label.shape[-1])
+            data = dict(data, label=np.concatenate([label_flat, label_image], axis=-1),
+                        images=images[:, -1])
+        return self._resize_data(data)
+
+    def _inference_data(self, data):
+        """The batch as G's eval forward takes it: int label maps one-hot
+        expanded, floating tensors in fp32."""
+        out = self._expand_labels(data)
+        return {k: (v.float() if torch.is_tensor(v) and v.is_floating_point() else v)
+                for k, v in out.items()}
+
+    @torch.no_grad()
+    def _get_visualizations(self, data):
+        """(image, label channel 0, fake[, fake of the averaged weights])
+        as NHWC numpy, each forward with a style code drawn from a
+        generator seeded 0."""
+        data = self._inference_data(data)
+
+        def fake(params):
+            generator = torch.Generator(device=self.device).manual_seed(0)
+            return self._generate(data, params, generator, random_style=True)[:, :3]
+
+        vis = [data["images"][:, :3], data["label"][:, :1], fake(None)]
+        if self.model_average:
+            vis.append(fake(self.inference_params()))
+        return [v.float().permute(0, 2, 3, 1).cpu().numpy() for v in vis]
 
     def _resize_data(self, data):
         """Round H/W of NHWC host arrays down to the generator's base

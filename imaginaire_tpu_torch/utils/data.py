@@ -49,6 +49,11 @@ def get_paired_input_label_channel_number(data_cfg, video=False):
     return num_labels
 
 
+def get_class_number(data_cfg):
+    """``num_classes`` of the data config."""
+    return data_cfg.num_classes
+
+
 def get_crop_h_w(augmentation):
     """Find the '*crop_h_w' augmentation key and parse 'H,W'."""
     augmentation = as_attrdict(augmentation)

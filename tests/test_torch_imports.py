@@ -3,7 +3,11 @@
 ``imaginaire_tpu_torch`` and ``chip_smoke.py`` must never import JAX,
 Flax or the JAX package (not even its yaml-only modules), and the
 package must import on a machine with no CUDA toolkit and no Triton:
-kernels are built at first use, never at import.
+kernels are built at first use, never at import. The GPU machine also
+has no OpenCV, PIL, torchvision, TensorBoard or LMDB: no port file
+imports them, except one lazy OpenCV import, named below, in the branch
+that decodes JPEG (and other formats the port's PNG codec does not
+read).
 """
 
 import ast
@@ -18,6 +22,9 @@ REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "imaginaire_tpu")
 PORT_FILES = sorted((REPO / "imaginaire_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"]
+GPU_MACHINE_LACKS = ("cv2", "PIL", "torchvision", "tensorboard", "lmdb")
+# (file, function) of the one allowed import of any of them
+LAZY_OPENCV_IMPORT = ("imaginaire_tpu_torch/data/backends.py", "_decode_with_opencv")
 
 
 def _imported_modules(path):
@@ -33,6 +40,43 @@ def _imported_modules(path):
             yield str(node.args[0].value)
 
 
+def _scoped_imports(path):
+    """(module, enclosing function or None) of every import in ``path``."""
+    found = []
+
+    def visit(node, scope):
+        if isinstance(node, ast.Import):
+            found.extend((alias.name, scope) for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            found.append((node.module, scope))
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            scope = node.name
+        for child in ast.iter_child_nodes(node):
+            visit(child, scope)
+
+    visit(ast.parse(path.read_text(), filename=str(path)), None)
+    return found
+
+
+def _lacking(module):
+    return module.split(".")[0] in GPU_MACHINE_LACKS or "tensorboard" in module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_file_imports_nothing_the_gpu_machine_lacks(path):
+    rel = str(path.relative_to(REPO))
+    bad = [(m, scope) for m, scope in _scoped_imports(path)
+           if _lacking(m) and (rel, scope) != LAZY_OPENCV_IMPORT]
+    assert not bad, f"{rel} imports {bad}"
+
+
+def test_the_lazy_opencv_import_is_the_named_one():
+    rel, function = LAZY_OPENCV_IMPORT
+    assert [m for m, scope in _scoped_imports(REPO / rel)
+            if _lacking(m)] == ["cv2"]
+    assert [scope for m, scope in _scoped_imports(REPO / rel) if m == "cv2"] == [function]
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_port_file_imports_no_jax(path):
     bad = [m for m in _imported_modules(path)
@@ -44,6 +88,8 @@ def test_package_imports_without_nvcc_or_triton(tmp_path):
     code = (
         "import importlib, pkgutil, sys\n"
         "sys.modules['triton'] = None\n"  # any `import triton` now raises
+        "for name in ('cv2', 'PIL', 'torchvision', 'tensorboard', 'lmdb'):\n"
+        "    sys.modules[name] = None\n"
         "import imaginaire_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'imaginaire_tpu_torch.')]\n"
         "for name in names:\n"
