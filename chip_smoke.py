@@ -21,7 +21,12 @@ Phases, one line each; any failure exits non-zero:
    card's bound for the same work and, where one exists, the PyTorch
    call that computes the same function; resample2d is timed at both
    paths' shapes under a mixed and a smooth flow, and (in phase 5) on
-   the frame and flow the vid2vid path gives it;
+   the frame and flow the vid2vid path gives it; resample2d's backward
+   at the training path's (2, 3, 512, 1024) in fp32 and bf16 under a
+   mixed, a smooth and a border flow, dflow alone and with dx (dflow bit
+   for bit, dx element by element within 1e-5 / one bf16 ulp of the
+   magnitude of the terms summed), timed beside ``torch.autograd.grad``
+   through ``F.grid_sample``;
 4. SPADE path: the SPADE serving engine at full COCO-Stuff width
    (configs/projects/spade/cocostuff/base128_bs4.yaml with the base norm
    of the SPADE blocks overridden to ``instance``, fresh seeded weights)
@@ -78,7 +83,26 @@ Phases, one line each; any failure exits non-zero:
    the main thread's and the other threads' CPU time and the garbage
    collector's time an iteration, peak memory and the checkpoints' sizes
    and times are printed;
-9. a ``kernels`` JSON line, the nvidia-smi line, and the final JSON line.
+9. vid2vid training entry (``vid2vid_train_entry``): a seeded dataset of 4
+   sequences of 6 frames (540x1080 RGB frames, 35-class seg maps) written
+   as PNG through the port's encoder and packed by ``build_packed_dataset``;
+   configs/projects/vid2vid/cityscapes/bf16.yaml with
+   ``trainer.perceptual_loss.allow_random_init`` and
+   ``flow_network.allow_random_init`` (no VGG19 or FlowNet2 weights in
+   the repository), its splits pointed there. ``imaginaire_tpu_torch.
+   train.main`` trains 4 iterations in-process (2 epochs, batch 2,
+   512x1024 crops, sequence length 4, bf16, ``remat: blocks``, the
+   teacher in the G step; the launch counters are reset just before and
+   read just after: a warp frame's D and G steps warp once each, its G
+   step runs the teacher (5 warps, 1 correlation, 6 channelnorms) and
+   one warp backward); the losses in ``meters.jsonl`` are finite, the
+   generator's flow network moves and the checkpoint's files verify; one
+   iteration is profiled; one fp32 warp-frame G step (TF32 off) through
+   the kernels is held within 1e-3 to the same step through their plain
+   versions. The median iteration and frames/s (``speed_benchmark``), D
+   and G step ms by frame type, peak memory, the host's data wait and
+   the checkpoint's bytes and save seconds are printed;
+10. a ``kernels`` JSON line, the nvidia-smi line, and the final JSON line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -196,6 +220,25 @@ RESAMPLE_CASES = [(RESAMPLE_PATH_SHAPE, 0, 0, "mixed"),
 # the plain output's max magnitude
 TOL_RESAMPLE_FP32 = 1e-5
 TOL_RESAMPLE_BF16_REL = 1e-2
+# resample2d's backward: the vid2vid training warp of the previous
+# (2, 3, 512, 1024) frames (batch 2) under the mixed, the smooth and a
+# border flow, fp32 and bf16 (x and flow of one type, as on the path),
+# dflow alone (the path: the previous frame is detached) and with dx;
+# and edge shapes (an odd W, B > 1, C = 5, H = 1). dflow: bit for bit
+# with the plain version (the same fp32 steps in the same order); dx
+# (fp32 atomics in a run-dependent order), element by element against
+# the magnitude of the terms it sums (sum of |w_k g|: a border pixel sums
+# thousands of terms of both signs, whose sum can be far smaller than
+# they are): fp32 1e-5 of it, bf16 one ulp at it
+RESAMPLE_BWD_PATH_SHAPE = (2, 3, 512, 1024)
+RESAMPLE_BWD_CASES = [(RESAMPLE_BWD_PATH_SHAPE, "mixed"),
+                      (RESAMPLE_BWD_PATH_SHAPE, "smooth"),
+                      (RESAMPLE_BWD_PATH_SHAPE, "border"),
+                      ((2, 3, 37, 53), "mixed"),
+                      ((3, 5, 1, 7), "mixed"),
+                      ((1, 2, 9, 1027), "border")]
+TOL_RESAMPLE_BWD_DX_REL = 1e-5
+TOL_RESAMPLE_BWD_DX_ULPS = 1.0
 # the generator's warped frame against the plain warp of the same
 # previous frame by the same flow (TF32 off): max-abs, and max-abs over
 # the frame's max magnitude (the fresh generator's frames are small)
@@ -275,6 +318,34 @@ ENTRY_SEED = 0
 ENTRY_RUNS = (6, 8)
 ENTRY_OVERRIDES = {"snapshot_save_iter": 7, "logging_iter": 2,
                    "image_save_iter": 3, "checkpoints_to_keep": 2}
+
+
+# vid2vid training from data on disk (phase 9): a seeded packed video
+# dataset of 4 sequences of 6 frames, RGB images and 35-class seg maps at
+# 540x1080 (resize_smallest_side 512 and random_crop_h_w 512x1024 do real
+# work); the Cityscapes config with the two overrides the repository's
+# missing weights force, 4 iterations (2 epochs of 2 batches of 2) at
+# sequence length 4: frames 2 and 3 warp. Each warp frame runs the
+# generator's warp in its D step and in its G step, and the teacher in
+# its G step (5 warps, 1 correlation, 6 channelnorms a forward); its G
+# backward runs the warp's backward (dflow only: the previous frame is
+# detached)
+V2V_ENTRY_SEQUENCES, V2V_ENTRY_FRAMES, V2V_ENTRY_HW = 4, 6, (540, 1080)
+V2V_ENTRY_ITERATIONS, V2V_ENTRY_SEQ, V2V_ENTRY_BATCH = 4, 4, 2
+V2V_ENTRY_WARP_FRAMES = V2V_ENTRY_SEQ - 2
+V2V_ENTRY_LAUNCHES = {"resample2d": V2V_ENTRY_WARP_FRAMES * (2 + 5),
+                      "resample2d_bwd": V2V_ENTRY_WARP_FRAMES,
+                      "correlation": V2V_ENTRY_WARP_FRAMES,
+                      "channelnorm": V2V_ENTRY_WARP_FRAMES * 6}
+V2V_ENTRY_OVERRIDES = {"logging_iter": 1, "snapshot_save_iter": 1000,
+                       "snapshot_save_epoch": 1000, "image_save_iter": 1000,
+                       "trainer": {"speed_benchmark": True,
+                                   "perceptual_loss": {"allow_random_init": True}},
+                       "flow_network": {"allow_random_init": True}}
+# one fp32 warp-frame G step (TF32 off) through the kernels against the
+# same step through their plain versions: each loss and the grad norm,
+# relative
+TOL_V2V_STEP_REL = 1e-3
 
 
 def phase(label, **fields):
@@ -598,6 +669,122 @@ def check_resample(rs):
         row["max_abs_err"] = max_err
     torch.cuda.empty_cache()
     return rows, max_err
+
+
+def resample_bwd_bound_ms(shape, elem_bytes, need_dx):
+    """Least time for one backward call: x, g and flow read once, dflow
+    (and dx) written once at HBM rate, against ~(12 + 14 C) fp32 flops a
+    pixel (4 differences, 6 products and 4 sums a channel; 8 more with
+    dx) at the fp32 peak; the larger of the two."""
+    b, c, h, w = shape
+    pixels = b * h * w
+    nbytes = (2 * c * elem_bytes + 4 * elem_bytes + c * elem_bytes * need_dx) * pixels
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = (12 + (14 + 8 * need_dx) * c) * pixels / FP32_FLOPS * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def border_flow(shape):
+    """(B, 2, H, W) flow whose sample points put every floor at or just
+    past a border (-1, 0, n - 1, n), or a million pixels outside."""
+    b, _, h, w = shape
+    xs = torch.tensor([-1.0, -0.5, 0.0, 0.25, w - 1.0, w - 0.5, w, w + 0.75,
+                       -1e6 - 0.5, 1e6 + 0.25], device="cuda")
+    ys = torch.tensor([-1.0, -0.25, 0.0, h - 1.0, h - 0.5, h, 1e6 + 0.5, -1e6],
+                      device="cuda")
+    gx = xs[torch.arange(h * w, device="cuda") % len(xs)].view(1, h, w)
+    gy = ys[torch.arange(h * w, device="cuda") % len(ys)].view(1, w, h).transpose(1, 2)
+    gx = gx - torch.arange(w, device="cuda").view(1, 1, w)
+    gy = gy - torch.arange(h, device="cuda").view(1, h, 1)
+    return torch.stack([gx, gy], dim=1).expand(b, 2, h, w).contiguous()
+
+
+def check_resample_bwd(rs):
+    """Phase 3b': the resample2d backward kernel vs its plain version at
+    the training path's shape and edge shapes, fp32 and bf16, dflow alone
+    and with dx; times at the path's shape (dflow alone, as the path runs
+    it; and with dx) beside the plain version, the bytes bound and
+    ``torch.autograd.grad`` through F.grid_sample. Returns (rows, worst
+    fp32 dx error over the magnitude of the terms summed)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(8765)
+    rows, max_err = [], 0.0
+    for shape, kind in RESAMPLE_BWD_CASES:
+        x32 = torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5
+        g32 = torch.randn(shape, generator=gen, device="cuda")
+        flow = {"mixed": lambda: mixed_flow(shape, gen),
+                "smooth": lambda: smooth_flow(shape),
+                "border": lambda: border_flow(shape)}[kind]()
+        for dtype in (torch.float32, torch.bfloat16):
+            x, f, g = x32.to(dtype), flow.to(dtype), g32.to(dtype)
+            for need_dx in (False, True):
+                before = rs.bwd_launches
+                dx, dflow = rs.resample2d_bwd(x, f, g, need_dx)
+                want_dx, want_dflow = rs.resample2d_bwd_plain(x, f, g, need_dx)
+                torch.cuda.synchronize()
+                if rs.bwd_launches != before + 1:
+                    raise AssertionError("resample2d_bwd did not launch its kernel")
+                label = f"{str(dtype).split('.')[-1]}/{'dx+dflow' if need_dx else 'dflow'}"
+                if dflow.dtype != dtype or not torch.equal(dflow, want_dflow):
+                    err = (dflow.float() - want_dflow.float()).abs().max().item()
+                    raise AssertionError(f"resample2d_bwd {shape} {kind} {label}: "
+                                         f"dflow differs from the plain version "
+                                         f"by up to {err}")
+                dx_err = None
+                if need_dx:
+                    if dx.dtype != dtype:
+                        raise AssertionError(f"resample2d_bwd dx is {dx.dtype}")
+                    terms = rs.resample2d_bwd_plain(
+                        x.float(), f.float(), g.float().abs())[0]
+                    if dtype == torch.float32:
+                        dx_err = ((dx - want_dx).abs()
+                                  / terms.clamp_min(1e-30)).max().item()
+                        max_err = max(max_err, dx_err)
+                        ok = dx_err <= TOL_RESAMPLE_BWD_DX_REL
+                    else:
+                        dx_err = bf16_ulps(dx, want_dx, scale=terms)
+                        ok = dx_err <= TOL_RESAMPLE_BWD_DX_ULPS
+                    if not ok:
+                        raise AssertionError(f"resample2d_bwd {shape} {kind} "
+                                             f"{label}: dx error {dx_err}")
+                phase("kernel_check", name="resample2d_bwd", shape=list(shape),
+                      flow=kind, dtype=label, dflow_bitwise=True, dx_error=dx_err)
+        if shape == RESAMPLE_BWD_PATH_SHAPE:
+            for dtype in (torch.bfloat16, torch.float32):
+                x, f, g = x32.to(dtype), flow.to(dtype), g32.to(dtype)
+                for need_dx in (False, True):
+                    bound, bound_by = resample_bwd_bound_ms(shape, x.element_size(),
+                                                            need_dx)
+                    ms = time_ms(lambda: rs.resample2d_bwd(x, f, g, need_dx))
+                    row = {"shape": list(shape), "flow": kind, "calls": 1,
+                           "dtype": str(dtype).split(".")[-1], "need_dx": need_dx,
+                           "ms": ms, "bound_ms": bound, "bound_by": bound_by,
+                           "bound_share": bound / ms,
+                           "plain_ms": time_ms(lambda: rs.resample2d_bwd_plain(
+                               x, f, g, need_dx), iters=5),
+                           "library_ms": time_grid_sample_bwd(x32, flow, g32, need_dx)}
+                    rows.append(row)
+                    phase("kernel", name="resample2d_bwd", **row)
+    for row in rows:
+        row["max_abs_err"] = max_err
+    torch.cuda.empty_cache()
+    return rows, max_err
+
+
+def time_grid_sample_bwd(x, flow, g, need_dx):
+    """The time of ``torch.autograd.grad`` through F.grid_sample
+    (bilinear, border, align_corners) for the same warp's gradients
+    (fp32): the grid's alone, or the input's too."""
+    import torch.nn.functional as F
+
+    grid = border_grid(flow.float()).requires_grad_(True)
+    xin = x.float().requires_grad_(need_dx)
+    out = F.grid_sample(xin, grid, mode="bilinear", padding_mode="border",
+                        align_corners=True)
+    wrt = [xin, grid] if need_dx else [grid]
+    return time_ms(lambda: torch.autograd.grad(out, wrt, g.float(),
+                                               retain_graph=True))
 
 
 def time_resample(rs, x, flow):
@@ -1239,6 +1426,249 @@ def spade_train_entry(spade_mod, device="cuda", overrides=None, items=ENTRY_ITEM
     return row
 
 
+def write_video_dataset(root, sequences=V2V_ENTRY_SEQUENCES,
+                        frames=V2V_ENTRY_FRAMES, hw=V2V_ENTRY_HW, seed=ENTRY_SEED):
+    """Seeded RGB frames and 35-class seg maps as PNG through the port's
+    encoder, packed by ``build_packed_dataset``."""
+    from imaginaire_tpu_torch.data.backends import build_packed_dataset
+    from imaginaire_tpu_torch.data.png import write_png
+
+    rng = np.random.RandomState(seed)
+    raw = root / "raw"
+    for s_ in range(sequences):
+        for t in range(frames):
+            for kind, arr in (("images", rng.randint(0, 256, hw + (3,))),
+                              ("seg_maps", rng.randint(0, V2V_LABELS, hw))):
+                (raw / kind / f"seq{s_:04d}").mkdir(parents=True, exist_ok=True)
+                write_png(raw / kind / f"seq{s_:04d}" / f"{t:05d}.png", arr.astype(np.uint8))
+    return build_packed_dataset(str(raw), str(root / "packed"), ["images", "seg_maps"])
+
+
+def video_entry_config(root, packed, overrides=None):
+    """The Cityscapes config, its splits pointed at the packed dataset,
+    the weights overrides, short cadences and ``speed_benchmark``."""
+    import yaml
+
+    from imaginaire_tpu_torch.config import load_yaml, recursive_update
+
+    cfg = load_yaml(V2V_CONFIG)
+    for split in ("train", "val"):
+        cfg["data"][split]["roots"] = [packed]
+    recursive_update(cfg, V2V_ENTRY_OVERRIDES)
+    recursive_update(cfg, overrides or {})
+    path = root / "config.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+class plain_kernels:
+    """Inside the block the generator's warp and the teacher call the
+    plain PyTorch versions of resample2d, correlation and channelnorm in
+    place of the kernels (differentiable through autograd)."""
+
+    def __enter__(self):
+        from imaginaire_tpu_torch.flow import flownet2
+        from imaginaire_tpu_torch.model_utils import fs_vid2vid
+        from imaginaire_tpu_torch.ops import channelnorm as cn
+        from imaginaire_tpu_torch.ops import correlation as corr
+        from imaginaire_tpu_torch.ops import resample2d as rs
+
+        self.saved = [(m, name, getattr(m, name)) for m, name in (
+            (fs_vid2vid, "resample2d"), (flownet2, "resample2d"),
+            (flownet2, "correlation"), (flownet2, "channelnorm"))]
+        fs_vid2vid.resample2d = flownet2.resample2d = rs.resample2d_plain
+        flownet2.correlation = corr.correlation_plain
+        flownet2.channelnorm = cn.channelnorm_plain
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, fn in self.saved:
+            setattr(m, name, fn)
+
+
+def video_launches(rs, corr, cn):
+    return {"resample2d": rs.launches, "resample2d_bwd": rs.bwd_launches,
+            "correlation": corr.launches, "channelnorm": cn.launches}
+
+
+def reset_video_launches(rs, corr, cn):
+    rs.launches = rs.bwd_launches = corr.launches = cn.launches = 0
+
+
+def vid2vid_train_entry(rs, corr, cn, device="cuda", overrides=None,
+                        hw=V2V_ENTRY_HW, iterations=V2V_ENTRY_ITERATIONS):
+    """Phase 9: ``python -m imaginaire_tpu_torch.train`` in-process on a
+    seeded packed video dataset, the Cityscapes config at 512x1024, batch
+    2, sequence length 4, bf16: the per-frame D-then-G rollout through
+    resample2d (forward and backward), correlation and channelnorm."""
+    from imaginaire_tpu_torch import train
+    from imaginaire_tpu_torch.resilience.integrity import verify_files
+    from imaginaire_tpu_torch.trainers.vid2vid import Trainer
+    from imaginaire_tpu_torch.utils import checkpoint as ckpt_lib
+    from imaginaire_tpu_torch.utils.meters import ScalarWriter
+
+    cuda = device == "cuda"
+    torch.backends.cudnn.allow_tf32 = True  # training runs the defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with tempfile.TemporaryDirectory(prefix="vid2vid_train_entry_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        packed = write_video_dataset(tmp, hw=hw)
+        data_s = time.perf_counter() - t0
+        cfg_path = video_entry_config(tmp, packed, overrides)
+        logdir = tmp / "log"
+        args = ["--config", str(cfg_path), "--logdir", str(logdir),
+                "--seed", str(ENTRY_SEED), "--device", device,
+                "--max_iter", str(iterations)]
+
+        saves, flow_before = [], {}
+        save, init_state = Trainer.save_checkpoint, Trainer.init_state
+
+        def timed_save(self, *a, **k):
+            t = time.perf_counter()
+            path = save(self, *a, **k)
+            saves.append(time.perf_counter() - t)
+            return path
+
+        def init_and_watch(self, *a, **k):
+            out = init_state(self, *a, **k)
+            flow_before["w"] = self.net_G.flow_network_temp.conv_flow.conv.weight.detach().clone()
+            return out
+
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        import gc
+
+        gc.collect()  # the earlier phases' profiler garbage (phase 8's note)
+        reset_video_launches(rs, corr, cn)
+        Trainer.save_checkpoint, Trainer.init_state = timed_save, init_and_watch
+        try:
+            with HostClocks(Trainer) as clocks:
+                t0 = time.perf_counter()
+                trainer = train.main(args)
+                train_s = time.perf_counter() - t0
+        finally:
+            Trainer.save_checkpoint, Trainer.init_state = save, init_state
+        launches = video_launches(rs, corr, cn)
+        peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else "not measured"
+        want = {k: iterations * n for k, n in V2V_ENTRY_LAUNCHES.items()}
+        if launches != want or trainer.compute_dtype != torch.bfloat16 \
+                or trainer.sequence_length != V2V_ENTRY_SEQ:
+            raise AssertionError(f"vid2vid training entry launches {launches}, "
+                                 f"expected {want}; compute dtype "
+                                 f"{trainer.compute_dtype}, sequence length "
+                                 f"{trainer.sequence_length}")
+        scalars = [r for r in ScalarWriter(logdir).read() if r["kind"] == "counter"
+                   and r["name"].split("/")[0] in ("gen_update", "dis_update")]
+        names = {r["name"] for r in scalars}
+        bad = [r for r in scalars if not np.isfinite(r["value"])
+               or r["name"].endswith("nonfinite_count")]
+        if bad or not {"gen_update/Flow_L1", "gen_update/Flow_Warp",
+                       "gen_update/Flow_Mask", "gen_update/Perceptual",
+                       "dis_update/GAN"} <= names:
+            raise AssertionError(f"meters.jsonl: {sorted(names)}, non-finite {bad[:5]}")
+        flow_moved = (trainer.net_G.flow_network_temp.conv_flow.conv.weight.detach()
+                      - flow_before["w"]).abs().max().item()
+        if not flow_moved > 0:
+            raise AssertionError("the generator's flow network did not move")
+        path = ckpt_lib.latest_checkpoint_path(str(logdir))
+        integrity = ckpt_lib.read_integrity_sidecar(path)
+        t0 = time.perf_counter()
+        verify_files(path, integrity["files"], context=path)
+        verify_s = time.perf_counter() - t0
+        if ckpt_lib.parse_checkpoint_name(path)[1] != iterations \
+                or integrity["n_leaves"] != len(trainer.state_tensors()):
+            raise AssertionError(f"checkpoint {path}: {integrity['n_leaves']} records")
+        timings = {k: [t * 1e3 for t in v] for k, v in trainer.timings.items()}
+
+        # one profiled iteration (the rollout of a batch already on the card)
+        from imaginaire_tpu_torch.data import get_train_and_val_dataloader
+
+        loader, _ = get_train_and_val_dataloader(trainer.cfg, seed=ENTRY_SEED)
+        loader.dataset.set_sequence_length(V2V_ENTRY_SEQ)
+        data = trainer.start_of_iteration(next(iter(loader)), iterations)
+        trainer.speed_benchmark = False
+
+        def one_iteration():
+            trainer.gen_update(data)
+            if cuda:
+                torch.cuda.synchronize()
+
+        breakdown = profile_call(one_iteration, repeats=1) if cuda else "not measured"
+
+        # in situ: one fp32 warp-frame G step (TF32 off) through the kernels
+        # against the same step through their plain versions
+        torch.backends.cudnn.allow_tf32 = False
+        trainer.compute_dtype = torch.float32
+        gen = torch.Generator(device=device).manual_seed(9)
+        data_t = trainer._get_data_t(data, 2, data["label"][:, :2],
+                                     torch.tanh(torch.randn(data["images"][:, :2].shape,
+                                                            generator=gen, device=device)))
+        data_t["past_stacks"] = {}
+        snap = _snapshot(trainer)
+
+        def g_step():
+            losses = trainer._step(trainer.net_G, trainer.opt_G,
+                                   lambda: trainer.gen_forward(data_t)[0],
+                                   None, "gen_step")
+            return {k: float(v) for k, v in losses.items()}
+
+        reset_video_launches(rs, corr, cn)
+        kernel_step = g_step()
+        step_launches = video_launches(rs, corr, cn)
+        _restore(trainer, snap)
+        reset_video_launches(rs, corr, cn)
+        with plain_kernels():
+            plain_step = g_step()
+        plain_launches = video_launches(rs, corr, cn)
+        torch.backends.cudnn.allow_tf32 = True
+        rel = {k: abs(kernel_step[k] - plain_step[k]) / max(abs(plain_step[k]), 1e-30)
+               for k in plain_step}
+        worst = max(rel, key=rel.get)
+        if step_launches != {"resample2d": 6, "resample2d_bwd": 1, "correlation": 1,
+                             "channelnorm": 6} \
+                or any(plain_launches.values()) or rel[worst] > TOL_V2V_STEP_REL \
+                or not {"Flow_L1", "Flow_Warp", "Flow_Mask"} <= set(plain_step):
+            raise AssertionError(
+                f"fp32 warp-frame G step through the kernels vs their plain "
+                f"versions: {worst} differs by {rel[worst]} (tol {TOL_V2V_STEP_REL}); "
+                f"launches {step_launches} / {plain_launches}")
+        del trainer, snap, data, data_t
+        if cuda:
+            torch.cuda.empty_cache()
+    seq = V2V_ENTRY_SEQ
+    kinds = ["first", "continuation"] + ["warp"] * (seq - 2)
+    by_type = {step: {kind: [ms for i, ms in enumerate(timings[step])
+                             if kinds[i % seq] == kind] for kind in dict.fromkeys(kinds)}
+               for step in ("dis_step", "gen_step")}
+    median_ms = float(np.median(timings["iteration"]))
+    frames = V2V_ENTRY_BATCH * seq
+    window_s = sum(timings["data_wait"][1:] + timings["iteration"][1:]) / 1e3
+    row = {"sequences": V2V_ENTRY_SEQUENCES, "frames": V2V_ENTRY_FRAMES, "hw": list(hw),
+           "batch": V2V_ENTRY_BATCH, "sequence_length": seq, "data_s": data_s,
+           "train_s": train_s, "iterations": iterations,
+           "iteration_ms": timings["iteration"], "median_iteration_ms": median_ms,
+           "frames_per_s": frames / (median_ms / 1e3),
+           "frames_per_s_with_data": frames * (iterations - 1) / window_s,
+           "step_ms_by_frame": {step: {kind: float(np.median(v)) for kind, v in d.items()}
+                                for step, d in by_type.items()},
+           "dis_step_ms": timings["dis_step"], "gen_step_ms": timings["gen_step"],
+           "data_wait_ms": timings["data_wait"], "loader_wait_ms": timings["loader_wait"],
+           "median_data_wait_ms": float(np.median(timings["data_wait"])),
+           "host": clocks.table(), "peak_mem_gib": peak, "launches": launches,
+           "launches_per_iteration": V2V_ENTRY_LAUNCHES, "flow_net_moved": flow_moved,
+           "checkpoint_bytes": sum(integrity["files"][f]["size"] for f in integrity["files"]),
+           "checkpoint_save_s": saves, "checkpoint_files_verify_s": verify_s,
+           "fp32_step_kernels": kernel_step, "fp32_step_plain": plain_step,
+           "fp32_worst_rel": [worst, rel[worst]], "fp32_step_launches": step_launches,
+           "iteration": breakdown}
+    phase("vid2vid_train_entry", **{k: v for k, v in row.items() if k != "iteration"})
+    if isinstance(breakdown, dict):
+        phase("vid2vid_train_profile", **{k: breakdown[k] for k in (
+            "wall_ms", "profiled_wall_ms", "device_ms", "idle_share", "families_ms")})
+    return row
+
+
 def one_hot_frame(rng):
     idx = rng.randint(0, V2V_LABELS, (1,) + V2V_HW)
     label = np.zeros((1,) + V2V_HW + (V2V_LABELS,), np.float32)
@@ -1729,6 +2159,7 @@ def main():
 
     rows, bwd_rows, max_err, bwd_err = check_modulation(spade_mod)
     rs_rows, rs_err = check_resample(rs)
+    rs_bwd_rows, rs_bwd_err = check_resample_bwd(rs)
     corr_rows, corr_err = check_correlation(corr)
     cn_rows, cn_err = check_channelnorm(cn)
     main = main_path(spade_mod)
@@ -1737,6 +2168,7 @@ def main():
     teacher = teacher_path(corr, cn, rs)
     train = spade_train_path(spade_mod)
     entry = spade_train_entry(spade_mod)
+    v2v_train = vid2vid_train_entry(rs, corr, cn)
 
     def per_call_set(table, dtype):
         sel = [r for r in table if r["dtype"].startswith(dtype)]
@@ -1770,6 +2202,17 @@ def main():
         # one warp of the previous (1, 3, 512, 1024) frame, fp32, mixed flow
         **{key: rs_rows[0][key] for key in
            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}, {
+        "name": "resample2d_bwd", "route": "cuda",
+        "source": "imaginaire_tpu_torch/csrc/resample2d.cu",
+        "replaces": "imaginaire_tpu/ops/resample2d.py:82",
+        "launches": v2v_train["launches"]["resample2d_bwd"], "max_abs_err": rs_bwd_err,
+        # the training warp's backward of (2, 3, 512, 1024) frames, bf16 (the
+        # path's type), dflow alone (the path's), mixed flow; max_abs_err is
+        # dflow's (0: bit for bit) and the fp32 dx checks' worst over the
+        # magnitude of the terms summed
+        **{key: next(r for r in rs_bwd_rows if r["flow"] == "mixed"
+                     and r["dtype"] == "bfloat16" and not r["need_dx"])[key]
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}, {
         "name": "correlation", "route": "cuda",
         "source": "imaginaire_tpu_torch/csrc/correlation.cu",
         "replaces": "imaginaire_tpu/ops/pallas/correlation_kernel.py:76",
@@ -1794,7 +2237,8 @@ def main():
              "correlation": corr_rows, "channelnorm": cn_rows,
              "main_path": main, "vid2vid_path": v2v, "teacher_path": teacher,
              "modulation_bwd": bwd_rows, "spade_train_path": train,
-             "spade_train_entry": entry,
+             "spade_train_entry": entry, "resample2d_bwd": rs_bwd_rows,
+             "vid2vid_train_entry": v2v_train,
              "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)

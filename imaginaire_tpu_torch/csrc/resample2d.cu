@@ -1,4 +1,5 @@
-// Bilinear backward warp (resample2d), forward, for Hopper (sm_90a).
+// Bilinear backward warp (resample2d), forward and backward, for Hopper
+// (sm_90a).
 //
 //   out[b, c, y, x] = sum over the 4 corners of x[b, c, yi, xi] * weight
 //
@@ -250,6 +251,130 @@ static cudaError_t launch(const void* x, const void* flow, void* out,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- backward
+//
+// Replaces: imaginaire_tpu/ops/resample2d.py, _pallas_bwd (jax.vjp of the
+// jnp _bilinear_warp; not Pallas). With g the gradient of the output, per
+// output pixel, in fp32 coordinates whatever the input types:
+//
+//   dflow_x = sum_c g ((1 - ay)(x01 - x00) + ay (x11 - x10))
+//   dflow_y = sum_c g ((1 - ax)(x10 - x00) + ax (x11 - x01))
+//
+// (floor has zero gradient; the corners are the forward's clamped ones,
+// so a pixel whose corners clamp to one column gets dflow_x = 0), and,
+// when dx is asked for, w_k g scatter-added into each of the four corners
+// with fp32 atomics into an fp32 buffer that the wrapper zeroes and casts
+// to x's type.
+//
+// Bound: device-memory bytes. x read once, g read once, flow read once
+// and dflow written once is (2 C e + 4 f) B H W bytes (e the element size
+// of x and g, f of flow and dflow), plus C B H W (4 + e) bytes for dx's
+// fp32 buffer and its cast when dx is asked for; at most ~60 flops a
+// pixel and channel. The design is the simple one: one thread a pixel
+// (neighbouring threads on neighbouring columns, so the flow, g and
+// dflow accesses are coalesced), a loop over the channels, a grid of one
+// wave walking the pixels grid-stride. dflow needs no atomics; it is
+// summed over the channels in the plain version's order with the
+// round-to-nearest intrinsics, so it equals the plain version bit for
+// bit. dx's atomics add in an order that changes from run to run.
+
+#define RESAMPLE_BWD_THREADS 256
+
+template <typename T, typename F>
+__global__ void __launch_bounds__(RESAMPLE_BWD_THREADS)
+resample2d_bwd_kernel(const T* __restrict__ x, const F* __restrict__ flow,
+                      const T* __restrict__ g, F* __restrict__ dflow,
+                      float* __restrict__ dx, int batch, int channels,
+                      int height, int width) {
+  const int64_t plane = (int64_t)height * width;
+  const int64_t n = plane * batch;
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; p < n;
+       p += step) {
+    const int64_t b = p / plane;
+    const int64_t r = p - b * plane;  // the pixel in its plane
+    const int y = (int)(r / width);
+    const int xc = (int)(r - (int64_t)y * width);
+    const F* fb = flow + b * 2 * plane + r;
+    const float xf = __fadd_rn((float)xc, load_f(fb));
+    const float yf = __fadd_rn((float)y, load_f(fb + plane));
+    const float xl = floorf(xf);
+    const float yl = floorf(yf);
+    const float ax = __fsub_rn(xf, xl);  // fractional parts BEFORE clamping
+    const float ay = __fsub_rn(yf, yl);
+    int x0i, y0i, sx, sy;
+    corner_indices(xl, width, &x0i, &sx);
+    corner_indices(yl, height, &y0i, &sy);
+    sy *= width;
+    const float bx = __fsub_rn(1.f, ax);
+    const float by = __fsub_rn(1.f, ay);
+    const int64_t o00 = (int64_t)y0i * width + x0i;
+    const T* xb = x + b * channels * plane + o00;
+    const T* gb = g + b * channels * plane + r;
+    float dfx = 0.f, dfy = 0.f;
+    for (int c = 0; c < channels; ++c) {
+      const T* xp = xb + (int64_t)c * plane;
+      const float v00 = gather_f(xp);
+      const float v01 = gather_f(xp + sx);
+      const float v10 = gather_f(xp + sy);
+      const float v11 = gather_f(xp + sy + sx);
+      const float gv = load_f(gb + (int64_t)c * plane);
+      const float tx = __fadd_rn(__fmul_rn(by, __fsub_rn(v01, v00)),
+                                 __fmul_rn(ay, __fsub_rn(v11, v10)));
+      const float ty = __fadd_rn(__fmul_rn(bx, __fsub_rn(v10, v00)),
+                                 __fmul_rn(ax, __fsub_rn(v11, v01)));
+      dfx = __fadd_rn(dfx, __fmul_rn(gv, tx));
+      dfy = __fadd_rn(dfy, __fmul_rn(gv, ty));
+      if (dx != nullptr) {
+        float* dp = dx + (b * channels + c) * plane + o00;
+        atomicAdd(dp, __fmul_rn(__fmul_rn(by, bx), gv));
+        atomicAdd(dp + sx, __fmul_rn(__fmul_rn(by, ax), gv));
+        atomicAdd(dp + sy, __fmul_rn(__fmul_rn(ay, bx), gv));
+        atomicAdd(dp + sy + sx, __fmul_rn(__fmul_rn(ay, ax), gv));
+      }
+    }
+    F* db = dflow + b * 2 * plane + r;
+    store_f(db, dfx);
+    store_f(db + plane, dfy);
+  }
+}
+
+// a grid of one wave of the backward kernel (at most), asked of the
+// runtime once per device
+template <typename T, typename F>
+static cudaError_t launch_bwd(const void* x, const void* flow, const void* g,
+                              void* dflow, void* dx, long long batch,
+                              long long channels, long long height,
+                              long long width, cudaStream_t stream) {
+  static int known[RESAMPLE_MAX_DEVICES];  // 0 until asked
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const bool kept = device >= 0 && device < RESAMPLE_MAX_DEVICES;
+  long long wave = kept ? known[device] : 0;
+  if (wave <= 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, resample2d_bwd_kernel<T, F>, RESAMPLE_BWD_THREADS, 0);
+    }
+    if (err != cudaSuccess) return err;
+    wave = (long long)sms * (per_sm > 0 ? per_sm : 1);
+    if (kept) known[device] = (int)wave;
+  }
+  const long long pixels = batch * height * width;
+  long long blocks = (pixels + RESAMPLE_BWD_THREADS - 1) / RESAMPLE_BWD_THREADS;
+  if (blocks > wave) blocks = wave;
+  resample2d_bwd_kernel<T, F><<<(unsigned)blocks, RESAMPLE_BWD_THREADS, 0,
+                                stream>>>(
+      static_cast<const T*>(x), static_cast<const F*>(flow),
+      static_cast<const T*>(g), static_cast<F*>(dflow),
+      static_cast<float*>(dx), (int)batch, (int)channels, (int)height,
+      (int)width);
+  return cudaGetLastError();
+}
+
 extern "C" {
 
 // x and out: NCHW-contiguous (batch, channels, height, width) tensors of
@@ -285,6 +410,39 @@ int resample2d_fwd(const void* x, const void* flow, void* out,
   } else if (x_dtype == 1 && flow_dtype == 1) {
     err = launch<__nv_bfloat16, __nv_bfloat16>(x, flow, out, batch, channels,
                                                height, width, tiles, s);
+  }
+  return (int)err;
+}
+
+// The backward. x and g: NCHW-contiguous (batch, channels, height, width)
+// of x_dtype; flow and dflow: (batch, 2, height, width) of flow_dtype
+// (0 = float32, 1 = bfloat16); dx: NULL, or a zeroed float32 buffer
+// shaped like x into which the kernel adds dx. Launches on `stream` and
+// returns the CUDA error code of the launch; it does not synchronise.
+int resample2d_bwd(const void* x, const void* flow, const void* g,
+                   void* dflow, void* dx, long long batch, long long channels,
+                   long long height, long long width, int x_dtype,
+                   int flow_dtype, void* stream) {
+  if (batch < 1 || channels < 1 || height < 1 || width < 1 ||
+      batch > 0x7fffffffLL || channels > 0x7fffffffLL ||
+      height > 0x7fffffffLL || width > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (x_dtype == 0 && flow_dtype == 0) {
+    err = launch_bwd<float, float>(x, flow, g, dflow, dx, batch, channels,
+                                   height, width, s);
+  } else if (x_dtype == 0 && flow_dtype == 1) {
+    err = launch_bwd<float, __nv_bfloat16>(x, flow, g, dflow, dx, batch,
+                                           channels, height, width, s);
+  } else if (x_dtype == 1 && flow_dtype == 0) {
+    err = launch_bwd<__nv_bfloat16, float>(x, flow, g, dflow, dx, batch,
+                                           channels, height, width, s);
+  } else if (x_dtype == 1 && flow_dtype == 1) {
+    err = launch_bwd<__nv_bfloat16, __nv_bfloat16>(x, flow, g, dflow, dx,
+                                                   batch, channels, height,
+                                                   width, s);
   }
   return (int)err;
 }

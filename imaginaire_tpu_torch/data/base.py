@@ -16,8 +16,11 @@ Each item's augmentation draws from its own ``random.Random``, seeded by
 not depend on which loader thread fetched it or on how many items came
 before it: a resumed run that skips the batches it already trained on
 sees the same items an unbroken run sees. (The JAX package draws from
-the global ``random`` module.) Pre-, post- and full-data ops are for
-video and pose data and raise until a later slice.
+the global ``random`` module.) Sequence items keep time at dim 0,
+(T, H, W, C); a video dataset that declares ``supports_temporal_stride``
+samples frames ``augmentations.max_time_step`` apart, and any other
+dataset refuses the knob. Pre-, post- and full-data ops are for pose
+data and raise until a later slice.
 """
 
 from __future__ import annotations
@@ -45,6 +48,9 @@ def _refuse_ops(spec, where):
 
 
 class BaseDataset:
+    # video datasets that honour augmentations.max_time_step set this True
+    supports_temporal_stride = False
+
     def __init__(self, cfg, is_inference=False, is_test=False):
         cfg = as_attrdict(cfg)
         self.cfg = cfg
@@ -53,6 +59,7 @@ class BaseDataset:
         self.cfgdata = cfg.test_data if is_test else cfg.data
         data_info = (self.cfgdata.test if is_test
                      else (self.cfgdata.val if is_inference else self.cfgdata.train))
+        self.data_info = data_info
         self.roots = list(data_info.roots)
         self.seed = 0
         self.epoch = 0
@@ -84,6 +91,12 @@ class BaseDataset:
         _refuse_ops(cfg_get(self.cfgdata, "full_data_ops", None), "full_data_ops")
         # ship (H, W) int index maps and one-hot them on the device
         self.one_hot_on_device = bool(cfg_get(self.cfgdata, "one_hot_on_device", False))
+        if self.one_hot_on_device and (
+                self.supports_temporal_stride
+                or "video" in str(cfg_get(self.cfgdata, "type", ""))):
+            raise ValueError(
+                "one_hot_on_device is implemented for image datasets only; "
+                "drop the knob for video dataset types")
         self.input_labels = list(cfg_get(self.cfgdata, "input_labels", None) or [])
 
         self.backends = {t: [] for t in self.data_types}
@@ -104,7 +117,7 @@ class BaseDataset:
         self.augmentor = Augmentor(
             aug_cfg, self.interpolators,
             keypoint_data_types=cfg_get(self.cfgdata, "keypoint_data_types", None))
-        if self.augmentor.max_time_step > 1:
+        if self.augmentor.max_time_step > 1 and not self.supports_temporal_stride:
             raise ValueError(
                 f"augmentations.max_time_step={self.augmentor.max_time_step} "
                 f"is configured, but {type(self).__module__} does not "

@@ -84,3 +84,31 @@ class NLayerPatchDiscriminator(nn.Module):
             features.append(x)
         logits = getattr(self, f"layer{self.num_layers + 1}")(x)
         return logits, features
+
+
+class MultiResPatchDiscriminator(nn.Module):
+    """One ``NLayerPatchDiscriminator`` a pyramid scale (``d_<i>``, as
+    the flax tree names them), each scale the align-corners bilinear
+    half of the one before. Returns (logits a scale, features a scale)."""
+
+    def __init__(self, in_channels, num_discriminators=3, kernel_size=3,
+                 num_filters=64, num_layers=4, max_num_filters=512,
+                 activation_norm_type="", weight_norm_type="", remat="none"):
+        super().__init__()
+        self.num_discriminators = num_discriminators
+        for i in range(num_discriminators):
+            self.add_module(f"d_{i}", NLayerPatchDiscriminator(
+                in_channels, kernel_size=kernel_size, num_filters=num_filters,
+                num_layers=num_layers, max_num_filters=max_num_filters,
+                activation_norm_type=activation_norm_type,
+                weight_norm_type=weight_norm_type, remat=remat))
+
+    def forward(self, x):
+        outputs, features_list = [], []
+        for i in range(self.num_discriminators):
+            logits, feats = getattr(self, f"d_{i}")(x)
+            outputs.append(logits)
+            features_list.append(feats)
+            if i != self.num_discriminators - 1:
+                x = downsample2x_bilinear(x)
+        return outputs, features_list

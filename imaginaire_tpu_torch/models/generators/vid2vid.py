@@ -13,8 +13,15 @@ Every submodule, the temporal path included, is built at construction,
 as the JAX package's ``init_all`` materializes them, and registered
 under the JAX names (``up_{i}``, ``down_{i}``, ``res_{i}``...), so
 ``bridge.load_flax_variables`` maps the flax tree path for path. NCHW
-tensors; frame histories are (B, T, C, H, W). ``gen.remat`` is a
-training-memory knob and inference ignores it.
+tensors; frame histories are (B, T, C, H, W).
+
+Training mode (``.train()``) normalizes the BatchNorms with the batch
+statistics and takes spectral-norm power steps; each layer writes its
+running statistics and ``u`` only in its own network's step
+(``layers/state.py``). ``gen.remat`` checkpoints the blocks the JAX
+generator wraps (``optim/remat.py``): the up, down and residual SPADE
+blocks and the flow network's residual trunk. The warp sits outside
+every wrapped block, so a checkpointed backward never repeats it.
 """
 
 from __future__ import annotations
@@ -27,8 +34,10 @@ from torch import nn
 
 from imaginaire_tpu_torch.config import as_attrdict, cfg_get
 from imaginaire_tpu_torch.layers import Conv2dBlock, LinearBlock, Res2dBlock
+from imaginaire_tpu_torch.layers.activation_norm import default_fused_modulation
 from imaginaire_tpu_torch.model_utils.fs_vid2vid import fold_time, resample
 from imaginaire_tpu_torch.models.generators.embedders import LabelEmbedder
+from imaginaire_tpu_torch.optim.remat import call_block, resolve_policy
 from imaginaire_tpu_torch.utils.data import (
     get_crop_or_resize_h_w,
     get_paired_input_image_channel_number,
@@ -48,9 +57,10 @@ class FlowGenerator(nn.Module):
     upsample trail, and flow and sigmoid-mask heads."""
 
     def __init__(self, flow_cfg, num_input_channels, num_prev_img_channels,
-                 num_frames):
+                 num_frames, remat="none"):
         super().__init__()
         cfg = as_attrdict(flow_cfg)
+        self.remat = resolve_policy(remat, where="gen.remat")
         num_filters = cfg_get(cfg, "num_filters", 32)
         max_num_filters = cfg_get(cfg, "max_num_filters", 1024)
         self.num_downsamples = nd = cfg_get(cfg, "num_downsamples", 5)
@@ -100,7 +110,7 @@ class FlowGenerator(nn.Module):
             img = getattr(self, f"down_img_{i}")(img)
         x = lbl + img
         for i in range(self.num_res_blocks):
-            x = getattr(self, f"res_{i}")(x)
+            x = call_block(getattr(self, f"res_{i}"), self.remat, x)
         for i in reversed(range(self.num_downsamples)):
             x = getattr(self, f"up_{i}")(upsample_2x(x))
         return self.conv_flow(x) * self.multiplier, self.conv_mask(x)
@@ -169,6 +179,9 @@ class Generator(nn.Module):
         an = cfg_get(gen_cfg, "activation_norm_type", "spatially_adaptive")
         anp = dict(as_attrdict(cfg_get(gen_cfg, "activation_norm_params", {}) or {}))
         anp.pop("num_filters_embed", None)
+        remat = cfg_get(gen_cfg, "remat", "none")
+        self.remat = resolve_policy(remat, where="gen.remat")
+        anp = default_fused_modulation(anp, remat)
 
         def nf(i):
             return min(max_num_filters, num_filters * (2 ** i))
@@ -224,9 +237,13 @@ class Generator(nn.Module):
         if self.has_flow:
             self.flow_network_temp = FlowGenerator(
                 flow_cfg, self.num_input_channels, self.num_img_channels,
-                self.num_frames_G)
+                self.num_frames_G, remat=remat)
 
     # ------------------------------------------------------------- helpers
+
+    def _block(self, name, x, *cond):
+        """SPADE residual block ``name``, checkpointed under ``gen.remat``."""
+        return call_block(getattr(self, name), self.remat, x, *cond)
 
     def get_cond_maps(self, label, embedder):
         """One conditioning list per scale."""
@@ -249,7 +266,7 @@ class Generator(nn.Module):
             x = self.fc(z).view(b, self.sh, self.sw, -1).permute(0, 3, 1, 2)
         for i in range(self.num_layers, self.num_downsamples_img, -1):
             j = min(self.num_downsamples_embed, i)
-            x = upsample_2x(getattr(self, f"up_{i}")(x, *cond_maps_now[j]))
+            x = upsample_2x(self._block(f"up_{i}", x, *cond_maps_now[j]))
         return x
 
     def _prev_frame_trunk(self, label_prev, img_prev, cond_maps_now):
@@ -259,14 +276,14 @@ class Generator(nn.Module):
             label_prev[:, -1], getattr(self, "label_embedding", None))
         for i in range(self.num_downsamples_img + 1):
             j = min(self.num_downsamples_embed, i)
-            x = getattr(self, f"down_{i}")(x, *cond_maps_prev[j])
+            x = self._block(f"down_{i}", x, *cond_maps_prev[j])
             if i != self.num_downsamples_img:
                 x = _avgpool3s2(x)
         j = min(self.num_downsamples_embed, self.num_downsamples_img + 1)
         for i in range(self.num_res_blocks):
             cond = (cond_maps_prev[j] if i < self.num_res_blocks // 2
                     else cond_maps_now[j])
-            x = getattr(self, f"res_{i}")(x, *cond)
+            x = self._block(f"res_{i}", x, *cond)
         return x
 
     def _flow_warp(self, label, label_prev, img_prev):
@@ -306,7 +323,7 @@ class Generator(nn.Module):
             cond_maps = list(cond_maps_now[j])
             if warp_prev and i < self.num_multi_spade_layers:
                 cond_maps += cond_maps_img[j]
-            x_img = getattr(self, f"up_{i}")(x_img, *cond_maps)
+            x_img = self._block(f"up_{i}", x_img, *cond_maps)
             if i != 0:
                 x_img = upsample_2x(x_img)
 

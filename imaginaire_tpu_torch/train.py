@@ -19,8 +19,14 @@ pinning and the copies' launch) and the iteration's host time; ``main``
 returns the trainer.
 
 The JAX package's mesh, elastic pods, cluster coordination, chaos
-injection, preemption guard and telemetry are not in the port: a config
-that enables one of them raises.
+injection, preemption guard, telemetry and vid2vid's whole-rollout scan
+(``trainer.rollout_scan``) are not in the port: a config that enables
+one of them raises. vid2vid's pipelined rollout (``trainer.pipeline``)
+runs as the sequential rollout, which the JAX package defines as
+bit-identical to it. Each epoch starts with ``trainer.start_of_epoch``
+(vid2vid's sequence-length curriculum sets the dataset's length there)
+and only then iterates the loader, whose read-ahead starts with the
+iteration.
 """
 
 from __future__ import annotations
@@ -75,6 +81,8 @@ def refuse_unported_runtime(cfg):
             cfg_get(resilience, "emergency_checkpoint", False)),
         "chaos.enabled": bool(enabled("chaos")),
         "telemetry.enabled": bool(enabled("telemetry")),
+        "trainer.rollout_scan": bool(cfg_get(cfg_get(cfg, "trainer", None) or {},
+                                             "rollout_scan", False)),
     }
     bad = [key for key, on in checks.items() if on]
     if bad:
@@ -105,7 +113,8 @@ def main(argv=None):
 
     train_loader, _ = get_train_and_val_dataloader(cfg, seed=args.seed)
     trainer = resolve(cfg.trainer.type, "Trainer")(
-        cfg, device=args.device, train=True, iters_per_epoch=len(train_loader))
+        cfg, device=args.device, train=True, iters_per_epoch=len(train_loader),
+        train_data_loader=train_loader)
     add_hparams(trainer.writer, {
         "trainer": str(cfg.trainer.type),
         "gen": str(cfg.gen.type),

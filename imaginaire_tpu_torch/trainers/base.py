@@ -12,7 +12,8 @@ steps eagerly:
 
 - ``dis_update(data)``: G's output under ``torch.no_grad()``, then D's
   loss, backward and Adam. Only D's spectral-norm ``u`` and BatchNorm
-  running statistics advance.
+  running statistics advance (a family may let the other network's state
+  advance within the step and restore it after: ``_scratch_state_nets``).
 - ``gen_update(data)``: G and D forward, G's loss, backward, Adam, and
   the EMA of G. Only G's state advances; D's forward takes a fresh
   power step but stores nothing.
@@ -106,8 +107,12 @@ def _global_norm(tensors):
 
 
 class BaseTrainer:
-    def __init__(self, cfg, device=None, train=False, iters_per_epoch=1):
+    def __init__(self, cfg, device=None, train=False, iters_per_epoch=1,
+                 train_data_loader=None):
         self.cfg = cfg = as_attrdict(cfg)
+        # the training loader, for families whose curriculum changes its
+        # dataset between epochs (vid2vid's sequence length)
+        self.train_data_loader = train_data_loader
         self.device = resolve_device(device)
         with torch.device(self.device):
             self.net_G = resolve(cfg.gen.type, "Generator")(cfg.gen, cfg.data)
@@ -259,6 +264,9 @@ class BaseTrainer:
         params = list(net.parameters())
         kept_state = ([b.clone() for b in state_buffers(net)]
                       if self.guard else None)
+        scratch = other in self._scratch_state_nets(net)
+        scratch_state = ([b.clone() for b in state_buffers(other)]
+                         if scratch else None)
         self.net_G.train()
         if self.net_D is not None:
             self.net_D.train()
@@ -270,11 +278,15 @@ class BaseTrainer:
                 for n in (net, other):
                     if n is not None:
                         policy.enter_context(param_compute_dtype(n, dtype))
-                        policy.enter_context(state_updates(n, n is net))
+                        policy.enter_context(state_updates(n, n is net or scratch))
                 losses = {k: v.float() for k, v in forward().items()}
                 losses["total"] = total = self._total(losses)
                 total.backward()
         finally:
+            if scratch:
+                with torch.no_grad():
+                    for b, v in zip(state_buffers(other), scratch_state):
+                        b.copy_(v)
             net.requires_grad_(False)
             self.net_G.eval()
             if self.net_D is not None:
@@ -312,6 +324,15 @@ class BaseTrainer:
             self.timings[key].append(time.perf_counter() - t0)
         return {k: v.detach() for k, v in losses.items()}
 
+    def _scratch_state_nets(self, net):
+        """The networks whose state (``u``, running statistics) advances
+        within ``net``'s step and is restored after it: the JAX trainer
+        applies them with their collections mutable and drops the
+        update, so a layer called twice in one forward sees the ``u`` its
+        first call wrote. The other network of a step keeps its state
+        otherwise (applied immutably)."""
+        return ()
+
     def _prepare(self, data):
         return self._to_compute_dtype(data)
 
@@ -348,6 +369,7 @@ class BaseTrainer:
     # ------------------------------------------------------------- the loop
 
     def start_of_epoch(self, current_epoch):
+        self._start_of_epoch(current_epoch)
         self.current_epoch = current_epoch
         self.start_epoch_time = time.perf_counter()
         # after a mid-epoch resume the epoch began resume_batch_in_epoch
@@ -358,7 +380,8 @@ class BaseTrainer:
 
     def start_of_iteration(self, data, current_iteration):
         """The host hook (``_start_of_iteration``), then the batch's
-        arrays to tensors on the device, NHWC arrays as NCHW, through
+        arrays to tensors on the device, NHWC arrays as NCHW and
+        (B, T, H, W, C) sequences as (B, T, C, H, W), through
         pinned host memory and non-blocking copies on a CUDA device.
         Entries that are not arrays (sample keys) pass through. The
         iteration's time (``end_of_iteration``) starts after the copies
@@ -381,6 +404,8 @@ class BaseTrainer:
             t = t.to(self.device, non_blocking=cuda)
             if t.ndim == 4:
                 t = t.permute(0, 3, 1, 2).contiguous()
+            elif t.ndim == 5:  # (B, T, H, W, C) sequences -> (B, T, C, H, W)
+                t = t.permute(0, 1, 4, 2, 3).contiguous()
             out[key] = t
         return out
 
@@ -391,6 +416,7 @@ class BaseTrainer:
         if self.speed_benchmark:
             self.timings["iteration"].append(self.time_iteration)
         cfg = self.cfg
+        self._end_of_iteration(data, current_epoch, current_iteration)
         if current_iteration % cfg_get(cfg, "logging_iter", 100) == 0:
             self._meter("time/iteration").write(self.time_iteration)
             self._flush_meters(current_iteration)
@@ -410,6 +436,12 @@ class BaseTrainer:
     def _start_of_iteration(self, data, current_iteration):
         """Host-side batch hook (numpy in, numpy out)."""
         return data
+
+    def _start_of_epoch(self, current_epoch):
+        """Family hook at the start of an epoch, before its loader starts."""
+
+    def _end_of_iteration(self, data, current_epoch, current_iteration):
+        """Family hook at the end of an iteration, before the meters flush."""
 
     def _get_visualizations(self, data):
         return None

@@ -34,9 +34,11 @@ from imaginaire_tpu_torch.utils.data import (
 
 
 class Trainer(BaseTrainer):
-    def __init__(self, cfg, device=None, train=False, iters_per_epoch=1):
+    def __init__(self, cfg, device=None, train=False, iters_per_epoch=1,
+                 train_data_loader=None):
         super().__init__(cfg, device=device, train=train,
-                         iters_per_epoch=iters_per_epoch)
+                         iters_per_epoch=iters_per_epoch,
+                         train_data_loader=train_data_loader)
         try:
             crop_h, crop_w = get_crop_or_resize_h_w(self.cfg.data.train.augmentations)
             self.base = {256: 16, 512: 32, 1024: 64}.get(min(crop_h, crop_w), 32)

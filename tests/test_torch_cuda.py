@@ -19,7 +19,9 @@ kernel's statistics (both round at the same steps), the statistics
 within 1e-5; its backward kernel, through autograd: fp32 dx 1e-5 and
 dgamma 1e-6 of the plain output's magnitude, bf16 one ulp (dx one ulp
 of the magnitude of the terms it sums). resample2d: fp32 1e-5 (the same fp32 steps),
-bf16 1e-2 of the output's magnitude. channelnorm and correlation: fp32
+bf16 1e-2 of the output's magnitude; its backward: dflow bit for bit
+(the same fp32 steps in the same order), dx (fp32 atomics) element by
+element fp32 1e-5 and bf16 one ulp of the magnitude of the terms summed. channelnorm and correlation: fp32
 1e-5 (sums of the same fp32 products in another order, fused
 multiply-adds; correlation's products are 3xTF32 on the tensor cores,
 within ~2^-22 of each fp32 product), bf16 1e-2 of the output's magnitude
@@ -321,12 +323,14 @@ def test_resample2d_kernel_matches_plain(cuda_device, shape, x_offset,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bad,error", [
-    ("grad", NotImplementedError), ("strided_x", ValueError),
+    ("half_grad", TypeError), ("strided_x", ValueError),
     ("strided_flow", ValueError), ("half", TypeError), ("cpu_flow", ValueError)])
 def test_resample2d_wrapper_refuses(cuda_device, bad, error):
+    """The forward's refusals (a flow that needs a gradient now launches:
+    the backward is a kernel too)."""
     x, flow = _warp_inputs((1, 3, 8, 8), torch.float32, torch.float32, cuda_device)
-    if bad == "grad":
-        flow.requires_grad_(True)
+    if bad == "half_grad":
+        flow = flow.half().requires_grad_(True)
     elif bad == "strided_x":
         x = x.transpose(2, 3)
     elif bad == "strided_flow":
@@ -339,6 +343,84 @@ def test_resample2d_wrapper_refuses(cuda_device, bad, error):
     with pytest.raises(error):
         rs.resample2d(x, flow)
     assert rs.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,scale", [
+    ((1, 1, 37, 53), None),
+    ((3, 5, 1, 7), None),         # B > 1, C = 5, H = 1
+    ((1, 2, 9, 1027), None),      # an odd W
+    ((2, 2, 48, 520), 300.0),     # flows far larger than a tile
+    ((2, 3, 512, 1024), None),    # the vid2vid training warp
+])
+def test_resample2d_backward_kernel_matches_plain(cuda_device, shape, scale, dtype):
+    """Through autograd, x and flow needing gradients (dx with atomics)
+    and the flow alone (dflow only), against the plain backward: dflow
+    bit for bit (the same fp32 steps in the same order); dx element by
+    element, fp32 1e-5 and bf16 one ulp of the magnitude of the terms it
+    sums (sum of |w_k g|)."""
+    x, flow = _warp_inputs(shape, dtype, dtype, cuda_device, scale=scale)
+    g = torch.randn(shape, generator=torch.Generator(device=cuda_device).manual_seed(1),
+                    device=cuda_device).to(dtype)
+    want_dx, want_dflow = rs.resample2d_bwd_plain(x, flow, g)
+    for need_dx in (True, False):
+        xi = x.clone().requires_grad_(need_dx)
+        fi = flow.clone().requires_grad_(True)
+        before = (rs.launches, rs.bwd_launches)
+        out = rs.resample2d(xi, fi)
+        grads = torch.autograd.grad(out, [xi, fi] if need_dx else [fi], g)
+        torch.cuda.synchronize()
+        assert (rs.launches, rs.bwd_launches) == (before[0] + 1, before[1] + 1)
+        dflow = grads[-1]
+        assert dflow.dtype == dtype and torch.equal(dflow, want_dflow)
+        if need_dx:
+            dx = grads[0]
+            assert dx.dtype == dtype
+            terms = rs.resample2d_bwd_plain(x.float(), flow.float(),
+                                            g.float().abs())[0]
+            if dtype == torch.float32:
+                err = ((dx - want_dx).abs() / terms.clamp_min(1e-30)).max().item()
+                assert err <= 1e-5, err
+            else:
+                assert bf16_ulps(dx, want_dx, scale=terms) <= 1.0
+
+
+@pytest.mark.cuda
+def test_resample2d_backward_takes_a_strided_gradient(cuda_device):
+    """The autograd Function makes a non-contiguous output gradient
+    contiguous before the kernel reads it."""
+    x, flow = _warp_inputs((2, 3, 16, 24), torch.float32, torch.float32, cuda_device)
+    flow.requires_grad_(True)
+    out = rs.resample2d(x, flow)
+    g = torch.randn(2, 3, 24, 16, device=cuda_device).transpose(2, 3)
+    assert not g.is_contiguous()
+    (dflow,) = torch.autograd.grad(out, [flow], g)
+    assert torch.equal(dflow, rs.resample2d_bwd_plain(x, flow.detach(),
+                                                      g.contiguous())[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad,error", [
+    ("half", TypeError), ("g_dtype", ValueError), ("g_shape", ValueError),
+    ("strided_g", ValueError), ("cpu_g", ValueError)])
+def test_resample2d_backward_wrapper_refuses(cuda_device, bad, error):
+    x, flow = _warp_inputs((1, 3, 8, 8), torch.float32, torch.float32, cuda_device)
+    g = torch.ones_like(x)
+    if bad == "half":
+        x, flow, g = x.half(), flow.half(), g.half()
+    elif bad == "g_dtype":
+        g = g.bfloat16()
+    elif bad == "g_shape":
+        g = g[:, :2].contiguous()
+    elif bad == "strided_g":
+        g = torch.ones(1, 3, 8, 8, device=cuda_device).transpose(2, 3)
+    else:
+        g = g.cpu()
+    before = rs.bwd_launches
+    with pytest.raises(error):
+        rs.resample2d_bwd(x, flow, g)
+    assert rs.bwd_launches == before
 
 
 def _held_to_plain(got, want, dtype):

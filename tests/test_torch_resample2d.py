@@ -12,10 +12,23 @@ version on the card (tests/test_torch_cuda.py and chip_smoke.py).
 
 Tolerance: fp32 atol 1e-5 (the Pallas kernel rounds its corner sum in
 another order; the jnp version is bit-equal).
+
+The backward (``resample2d_bwd_plain`` and the autograd Function) is held
+to ``jax.vjp`` of the 'jnp' and 'pallas_interpret' routes (the Pallas
+route's backward is the vjp of the jnp warp) in fp32: dx and dflow within
+1e-5 of the reference's max magnitude, under mixed, border-clamped,
+entirely out-of-range and exact-integer flows; the Function passes
+``torch.autograd.gradcheck`` in fp64. In bf16 the port keeps fp32
+coordinates: its backward equals its fp32 backward of the same
+(bf16-valued) inputs rounded once, and is held to the JAX vjp of
+fp32-cast inputs within 8e-3 of the max magnitude (bf16 rounds once at
+the end); the JAX vjp of bf16 inputs computes its coordinates in bf16
+and lands whole pixels away (ROADMAP.md, section C).
 """
 
 import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -106,6 +119,118 @@ def test_bf16_keeps_fp32_coordinates():
         jnp.asarray(x, jnp.bfloat16), jnp.asarray(flow, jnp.bfloat16),
         implementation="jnp").astype(jnp.float32))
     assert np.abs(ref_bf16 - nhwc(got)).max() > 0.5
+
+
+def outside_flow(rng, b, h, w):
+    """(B, H, W, 2) flow sending every pixel 2-3 frame sizes outside."""
+    sign = rng.choice([-1.0, 1.0], (b, h, w, 2))
+    return (sign * rng.uniform(2.0, 3.0, (b, h, w, 2)) * np.array([w, h])).astype(np.float32)
+
+
+def integer_flow(rng, b, h, w):
+    """(B, H, W, 2) integer flows: every sample point on a pixel centre,
+    where floor's convention decides the corners."""
+    return rng.randint(-3, 4, (b, h, w, 2)).astype(np.float32)
+
+
+def jax_vjp(impl, x, flow, g, dtype=jnp.float32):
+    """(dx, dflow) of the JAX op's vjp, one jitted program."""
+    def grads(a, f, gg):
+        _, vjp = jax.vjp(lambda a_, f_: jax_resample2d(a_, f_, implementation=impl), a, f)
+        return vjp(gg)
+
+    args = [jnp.asarray(a, dtype) for a in (x, flow, g)]
+    return [np.asarray(v, np.float32) for v in jax.jit(grads)(*args)]
+
+
+def rel_err(got, want):
+    return np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+
+
+@pytest.mark.parametrize("impl", ["jnp", "pallas_interpret"])
+@pytest.mark.parametrize("flow_kind", ["mixed", "border", "outside", "integer"])
+def test_backward_plain_matches_jax_vjp_fp32(impl, flow_kind):
+    rng = np.random.RandomState(3)
+    b, h, w = 2, 8, 16
+    x = rng.randn(b, h, w, 3).astype(np.float32)
+    g = rng.randn(b, h, w, 3).astype(np.float32)
+    flow = {"mixed": lambda: mixed_flow(rng, b, h, w),
+            "border": lambda: border_flow(b, h, w),
+            "outside": lambda: outside_flow(rng, b, h, w),
+            "integer": lambda: integer_flow(rng, b, h, w)}[flow_kind]()
+    want_dx, want_dflow = jax_vjp(impl, x, flow, g)
+    before = rs.bwd_launches
+    dx, dflow = rs.resample2d_bwd(nchw(x), nchw(flow), nchw(g))
+    assert rs.bwd_launches == before  # the CPU takes the plain version
+    assert dx.dtype == dflow.dtype == torch.float32
+    assert rel_err(nhwc(dx), want_dx) <= 1e-5
+    if flow_kind == "outside":
+        # every pixel's corners clamp to one border pixel: dflow is 0, and
+        # the JAX vjp's is the rounding of a difference of two equal sums
+        assert not nhwc(dflow).any() and np.abs(want_dflow).max() <= 1e-6
+    else:
+        assert rel_err(nhwc(dflow), want_dflow) <= 1e-5
+    _, dflow_only = rs.resample2d_bwd_plain(nchw(x), nchw(flow), nchw(g), need_dx=False)
+    assert _ is None and torch.equal(dflow_only, dflow)
+
+
+def test_autograd_function_matches_autograd_of_the_plain_warp():
+    """Through the Function (the plain backward on the CPU) and through
+    autograd of ``resample2d_plain``: the same gradients up to the order
+    of fp32 sums; a flow alone needing a gradient gets dflow only."""
+    rng = np.random.RandomState(4)
+    x, flow = nchw(rng.randn(2, 8, 16, 3)), nchw(mixed_flow(rng, 2, 8, 16))
+    g = nchw(rng.randn(2, 8, 16, 3))
+    grads = []
+    for warp in (rs.resample2d, rs.resample2d_plain):
+        xi, fi = x.clone().requires_grad_(True), flow.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad(warp(xi, fi), [xi, fi], g))
+    for a, b in zip(*grads):
+        assert rel_err(a.numpy(), b.numpy()) <= 1e-5
+    fi = flow.clone().requires_grad_(True)
+    (dflow,) = torch.autograd.grad(rs.resample2d(x, fi), [fi], g)
+    assert torch.equal(dflow, grads[0][1])
+
+
+def test_autograd_function_passes_gradcheck():
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 2, 3, 5, dtype=torch.float64, generator=gen).requires_grad_(True)
+    # fractional sample points only: the warp is not differentiable where
+    # a coordinate is an integer
+    flow = (torch.rand(2, 2, 3, 5, dtype=torch.float64, generator=gen) * 0.8 + 0.1
+            + torch.randint(-2, 2, (2, 2, 3, 5), generator=gen)).requires_grad_(True)
+    before = (rs.launches, rs.bwd_launches)
+    assert torch.autograd.gradcheck(rs.resample2d, (x, flow))
+    assert (rs.launches, rs.bwd_launches) == before
+
+
+def test_bf16_backward_keeps_fp32_coordinates():
+    """At W = 512 the port's bf16 backward is its fp32 backward of the
+    same bf16-valued inputs, rounded once, and within 8e-3 of the JAX vjp
+    of fp32-cast inputs; the JAX vjp of bf16 inputs computes coordinates
+    in bf16 (2 pixels apart at x in [256, 512)) and is far off."""
+    rng = np.random.RandomState(5)
+    x = rng.randn(1, 2, 512, 3).astype(np.float32)
+    flow = rng.uniform(-2.0, 2.0, (1, 2, 512, 2)).astype(np.float32)
+    g = rng.randn(1, 2, 512, 3).astype(np.float32)
+    xb, fb, gb = (nchw(a, torch.bfloat16) for a in (x, flow, g))
+    dx, dflow = rs.resample2d_bwd(xb, fb, gb)
+    assert dx.dtype == dflow.dtype == torch.bfloat16
+    dx32, dflow32 = rs.resample2d_bwd_plain(xb.float(), fb.float(), gb.float())
+    assert torch.equal(dflow, dflow32.bfloat16())
+    assert torch.equal(dx, dx32.bfloat16())
+    cast = [np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32) for a in (x, flow, g)]
+    want_dx, want_dflow = jax_vjp("jnp", *cast)
+    assert rel_err(nhwc(dx), want_dx) <= 8e-3
+    assert rel_err(nhwc(dflow), want_dflow) <= 8e-3
+    _, bf16_dflow = jax_vjp("jnp", x, flow, g, jnp.bfloat16)
+    assert rel_err(bf16_dflow, want_dflow) > 0.1
+
+
+def test_backward_bad_gradient_shape_raises():
+    x, flow = torch.zeros(1, 3, 4, 4), torch.zeros(1, 2, 4, 4)
+    with pytest.raises(ValueError):
+        rs.resample2d_bwd(x, flow, torch.zeros(1, 2, 4, 4))
 
 
 @pytest.mark.parametrize("x_shape,flow_shape", [
