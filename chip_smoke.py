@@ -11,7 +11,7 @@ Phases, one line each; any failure exits non-zero:
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: compile every kernel of the main paths from csrc/ (one nvcc per
    source, all started together; sm_90a), with ptxas registers and spills;
-   it fails if a spade_modulation kernel spills;
+   it fails if a spade_modulation or a resample2d kernel spills;
 3. kernels: hold each kernel against its plain PyTorch version at every
    shape the main paths give it (and at edge shapes: for
    spade_modulation every path of its plan and the plan's boundaries,
@@ -23,10 +23,11 @@ Phases, one line each; any failure exits non-zero:
    paths' shapes under a mixed and a smooth flow, and (in phase 5) on
    the frame and flow the vid2vid path gives it; resample2d's backward
    at the training path's (2, 3, 512, 1024) in fp32 and bf16 under a
-   mixed, a smooth and a border flow, dflow alone and with dx (dflow bit
-   for bit, dx element by element within 1e-5 / one bf16 ulp of the
-   magnitude of the terms summed), timed beside ``torch.autograd.grad``
-   through ``F.grid_sample``;
+   mixed, a smooth, a border, a wide and an all-corners flow, dflow alone
+   and with dx (dflow bit for bit, dx element by element within 1e-5 /
+   one bf16 ulp of the magnitude of the terms summed), timed beside
+   ``torch.autograd.grad`` through ``F.grid_sample`` in the same type and
+   in fp32;
 4. SPADE path: the SPADE serving engine at full COCO-Stuff width
    (configs/projects/spade/cocostuff/base128_bs4.yaml with the base norm
    of the SPADE blocks overridden to ``instance``, fresh seeded weights)
@@ -221,10 +222,12 @@ RESAMPLE_CASES = [(RESAMPLE_PATH_SHAPE, 0, 0, "mixed"),
 TOL_RESAMPLE_FP32 = 1e-5
 TOL_RESAMPLE_BF16_REL = 1e-2
 # resample2d's backward: the vid2vid training warp of the previous
-# (2, 3, 512, 1024) frames (batch 2) under the mixed, the smooth and a
-# border flow, fp32 and bf16 (x and flow of one type, as on the path),
-# dflow alone (the path: the previous frame is detached) and with dx;
-# and edge shapes (an odd W, B > 1, C = 5, H = 1). dflow: bit for bit
+# (2, 3, 512, 1024) frames (batch 2) under the mixed, the smooth, a
+# border, the wide (up to 300 pixels) and an all-corners flow (every
+# sample clamps to one of the frame's four corner pixels: the most
+# atomics onto one address), fp32 and bf16 (x and flow of one type, as
+# on the path), dflow alone (the path: the previous frame is detached)
+# and with dx; and edge shapes (an odd W, B > 1, C = 5, H = 1). dflow: bit for bit
 # with the plain version (the same fp32 steps in the same order); dx
 # (fp32 atomics in a run-dependent order), element by element against
 # the magnitude of the terms it sums (sum of |w_k g|: a border pixel sums
@@ -234,6 +237,8 @@ RESAMPLE_BWD_PATH_SHAPE = (2, 3, 512, 1024)
 RESAMPLE_BWD_CASES = [(RESAMPLE_BWD_PATH_SHAPE, "mixed"),
                       (RESAMPLE_BWD_PATH_SHAPE, "smooth"),
                       (RESAMPLE_BWD_PATH_SHAPE, "border"),
+                      (RESAMPLE_BWD_PATH_SHAPE, "wide"),
+                      (RESAMPLE_BWD_PATH_SHAPE, "corners"),
                       ((2, 3, 37, 53), "mixed"),
                       ((3, 5, 1, 7), "mixed"),
                       ((1, 2, 9, 1027), "border")]
@@ -599,6 +604,17 @@ def wide_flow(shape, gen):
     return torch.rand((b, 2, h, w), generator=gen, device="cuda") * 600 - 300
 
 
+def corners_flow(shape, gen):
+    """(B, 2, H, W) flow that sends every pixel 1.5 frame sizes and a
+    fraction of a pixel out on both axes (the fraction survives in fp32):
+    all four corners of every pixel clamp to one of the frame's four
+    corner pixels, in fp32 and in bf16."""
+    b, _, h, w = shape
+    size = torch.tensor([w, h], device="cuda").view(1, 2, 1, 1)
+    sign = torch.randint(0, 2, (b, 2, h, w), generator=gen, device="cuda") * 2 - 1
+    return sign * (1.5 * size + torch.rand((b, 2, h, w), generator=gen, device="cuda"))
+
+
 def smooth_flow(shape):
     """A smooth flow field of a few pixels, as optical flow is."""
     b, _, h, w = shape
@@ -699,13 +715,43 @@ def border_flow(shape):
     return torch.stack([gx, gy], dim=1).expand(b, 2, h, w).contiguous()
 
 
+def resample_bwd_flow(kind, shape, gen):
+    """The backward's flow of ``kind`` (RESAMPLE_BWD_CASES) at ``shape``."""
+    return {"mixed": lambda: mixed_flow(shape, gen),
+            "smooth": lambda: smooth_flow(shape),
+            "border": lambda: border_flow(shape),
+            "wide": lambda: wide_flow(shape, gen),
+            "corners": lambda: corners_flow(shape, gen)}[kind]()
+
+
+def resample_bwd_errors(rs, x, f, g, dx, dflow):
+    """(dflow equal bit for bit, dx error, within the gates) of a backward's
+    (dx or None, dflow) against the plain version on the same inputs: dx
+    element by element over the magnitude of the terms it sums (sum of
+    |w_k g|), fp32 within TOL_RESAMPLE_BWD_DX_REL of it, bf16 within
+    TOL_RESAMPLE_BWD_DX_ULPS bf16 ulps at it."""
+    want_dx, want_dflow = rs.resample2d_bwd_plain(x, f, g, dx is not None)
+    bitwise = dflow.dtype == f.dtype and torch.equal(dflow, want_dflow)
+    if dx is None:
+        return bitwise, None, bitwise
+    if dx.dtype != x.dtype:
+        return bitwise, None, False
+    terms = rs.resample2d_bwd_plain(x.float(), f.float(), g.float().abs())[0]
+    if x.dtype == torch.float32:
+        err = ((dx - want_dx).abs() / terms.clamp_min(1e-30)).max().item()
+        return bitwise, err, bitwise and err <= TOL_RESAMPLE_BWD_DX_REL
+    err = bf16_ulps(dx, want_dx, scale=terms)
+    return bitwise, err, bitwise and err <= TOL_RESAMPLE_BWD_DX_ULPS
+
+
 def check_resample_bwd(rs):
     """Phase 3b': the resample2d backward kernel vs its plain version at
     the training path's shape and edge shapes, fp32 and bf16, dflow alone
-    and with dx; times at the path's shape (dflow alone, as the path runs
-    it; and with dx) beside the plain version, the bytes bound and
-    ``torch.autograd.grad`` through F.grid_sample. Returns (rows, worst
-    fp32 dx error over the magnitude of the terms summed)."""
+    and with dx; times at the path's shape under each of its flows (dflow
+    alone, as the path runs it; and with dx) beside the plain version, the
+    bytes bound and ``torch.autograd.grad`` through F.grid_sample in the
+    row's type and in fp32. Returns (rows, worst fp32 dx error over the
+    magnitude of the terms summed)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(8765)
@@ -713,41 +759,23 @@ def check_resample_bwd(rs):
     for shape, kind in RESAMPLE_BWD_CASES:
         x32 = torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5
         g32 = torch.randn(shape, generator=gen, device="cuda")
-        flow = {"mixed": lambda: mixed_flow(shape, gen),
-                "smooth": lambda: smooth_flow(shape),
-                "border": lambda: border_flow(shape)}[kind]()
+        flow = resample_bwd_flow(kind, shape, gen)
         for dtype in (torch.float32, torch.bfloat16):
             x, f, g = x32.to(dtype), flow.to(dtype), g32.to(dtype)
             for need_dx in (False, True):
                 before = rs.bwd_launches
                 dx, dflow = rs.resample2d_bwd(x, f, g, need_dx)
-                want_dx, want_dflow = rs.resample2d_bwd_plain(x, f, g, need_dx)
                 torch.cuda.synchronize()
                 if rs.bwd_launches != before + 1:
                     raise AssertionError("resample2d_bwd did not launch its kernel")
                 label = f"{str(dtype).split('.')[-1]}/{'dx+dflow' if need_dx else 'dflow'}"
-                if dflow.dtype != dtype or not torch.equal(dflow, want_dflow):
-                    err = (dflow.float() - want_dflow.float()).abs().max().item()
+                bitwise, dx_err, ok = resample_bwd_errors(rs, x, f, g, dx, dflow)
+                if not ok:
                     raise AssertionError(f"resample2d_bwd {shape} {kind} {label}: "
-                                         f"dflow differs from the plain version "
-                                         f"by up to {err}")
-                dx_err = None
-                if need_dx:
-                    if dx.dtype != dtype:
-                        raise AssertionError(f"resample2d_bwd dx is {dx.dtype}")
-                    terms = rs.resample2d_bwd_plain(
-                        x.float(), f.float(), g.float().abs())[0]
-                    if dtype == torch.float32:
-                        dx_err = ((dx - want_dx).abs()
-                                  / terms.clamp_min(1e-30)).max().item()
-                        max_err = max(max_err, dx_err)
-                        ok = dx_err <= TOL_RESAMPLE_BWD_DX_REL
-                    else:
-                        dx_err = bf16_ulps(dx, want_dx, scale=terms)
-                        ok = dx_err <= TOL_RESAMPLE_BWD_DX_ULPS
-                    if not ok:
-                        raise AssertionError(f"resample2d_bwd {shape} {kind} "
-                                             f"{label}: dx error {dx_err}")
+                                         f"dflow bit for bit {bitwise}, dx error "
+                                         f"{dx_err} (dx {dx if dx is None else dx.dtype})")
+                if dx_err is not None and dtype == torch.float32:
+                    max_err = max(max_err, dx_err)
                 phase("kernel_check", name="resample2d_bwd", shape=list(shape),
                       flow=kind, dtype=label, dflow_bitwise=True, dx_error=dx_err)
         if shape == RESAMPLE_BWD_PATH_SHAPE:
@@ -763,7 +791,9 @@ def check_resample_bwd(rs):
                            "bound_share": bound / ms,
                            "plain_ms": time_ms(lambda: rs.resample2d_bwd_plain(
                                x, f, g, need_dx), iters=5),
-                           "library_ms": time_grid_sample_bwd(x32, flow, g32, need_dx)}
+                           "library_ms": time_ms(grid_sample_bwd(x, f, g, need_dx)),
+                           "library_fp32_ms": time_ms(grid_sample_bwd(
+                               x32, flow, g32, need_dx))}
                     rows.append(row)
                     phase("kernel", name="resample2d_bwd", **row)
     for row in rows:
@@ -772,19 +802,19 @@ def check_resample_bwd(rs):
     return rows, max_err
 
 
-def time_grid_sample_bwd(x, flow, g, need_dx):
-    """The time of ``torch.autograd.grad`` through F.grid_sample
-    (bilinear, border, align_corners) for the same warp's gradients
-    (fp32): the grid's alone, or the input's too."""
+def grid_sample_bwd(x, flow, g, need_dx):
+    """fn() of ``torch.autograd.grad`` through F.grid_sample (bilinear,
+    border, align_corners) for the same warp's gradients, in x's type
+    (the grid too): the grid's alone, or the input's too."""
     import torch.nn.functional as F
 
-    grid = border_grid(flow.float()).requires_grad_(True)
-    xin = x.float().requires_grad_(need_dx)
-    out = F.grid_sample(xin, grid, mode="bilinear", padding_mode="border",
-                        align_corners=True)
+    grid = border_grid(flow.float()).to(x.dtype).requires_grad_(True)
+    xin = x.detach().clone().requires_grad_(need_dx)
+    with torch.enable_grad():
+        out = F.grid_sample(xin, grid, mode="bilinear", padding_mode="border",
+                            align_corners=True)
     wrt = [xin, grid] if need_dx else [grid]
-    return time_ms(lambda: torch.autograd.grad(out, wrt, g.float(),
-                                               retain_graph=True))
+    return lambda: torch.autograd.grad(out, wrt, g, retain_graph=True)
 
 
 def time_resample(rs, x, flow):
@@ -2150,12 +2180,14 @@ def main():
                     if "registers" in line or "spill" in line]
              for name, lib in libs.items()}
     mod_kernels = ptxas_kernels(Path(f"{libs[spade_mod.KERNEL]}.log").read_text())
+    rs_kernels = ptxas_kernels(Path(f"{libs[rs.KERNEL]}.log").read_text())
     phase("build", seconds=build_s, libraries=[str(p) for p in libs.values()],
           ptxas={k: v for k, v in ptxas.items() if k != spade_mod.KERNEL},
           modulation_kernels=mod_kernels)
-    spilled = [k for k in mod_kernels if k["spill_bytes"] != 0]
-    if not mod_kernels or spilled:
-        raise AssertionError(f"spade_modulation kernels spill registers: {spilled}")
+    for name, table in ((spade_mod.KERNEL, mod_kernels), (rs.KERNEL, rs_kernels)):
+        spilled = [k for k in table if k["spill_bytes"] != 0]
+        if not table or spilled:
+            raise AssertionError(f"{name} kernels spill registers: {spilled}")
 
     rows, bwd_rows, max_err, bwd_err = check_modulation(spade_mod)
     rs_rows, rs_err = check_resample(rs)

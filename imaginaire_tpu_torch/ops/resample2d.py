@@ -23,8 +23,9 @@ weights come from the unclamped fractional parts.
 - ``resample2d``: the wrapper, a ``torch.autograd.Function``. Tensors on
   the CPU take the plain versions; CUDA tensors launch the hand-written
   kernels (``csrc/resample2d.cu``: ``resample2d_fwd``, and
-  ``resample2d_bwd``, which computes dx only when x needs a gradient) or
-  raise. ``launches`` and ``bwd_launches`` count the kernel launches.
+  ``resample2d_bwd``, which launches a kernel without atomics for dflow
+  alone and one that also adds dx when x needs a gradient) or raise.
+  ``launches`` and ``bwd_launches`` count the kernel launches.
 """
 
 from __future__ import annotations

@@ -5,9 +5,9 @@
         [--resample-baseline SOURCE] [--correlation-baseline SOURCE]
         [--modulation-baseline SOURCE]
 
-Four measurements (``--probes``, default all four: timer, correlation,
-resample2d, modulation), each timed in turns (the cases in order, then
-in reverse) with chip_smoke.py's timer:
+Five measurements (``--probes``, default all five: timer, correlation,
+resample2d, resample2d_bwd, modulation), each timed in turns (the cases
+in order, then in reverse) with chip_smoke.py's timer:
 
 1. The timer's own cost: channelnorm and torch.linalg.vector_norm at one
    frame pair (C = 3 and 2, fp32), each under chip_smoke.time_ms (the L2
@@ -78,7 +78,37 @@ in reverse) with chip_smoke.py's timer:
    - grid_sample: ``F.grid_sample`` (bilinear, border, align_corners) of
      the same warp, the library call chip_smoke.py times beside the
      kernel (not held to the plain version: it rounds otherwise).
-4. The spade_modulation forward and backward at the 19 calls' 7 shapes
+4. Variants of the resample2d backward at the vid2vid training warp
+   (2, 3, 512, 1024), fp32 and bf16 (x, flow and g of one type), under
+   chip_smoke's mixed, smooth, border and all-corners flows, dflow alone
+   (the path's call) and with dx; each variant is built from an edited
+   copy of ``csrc/resample2d.cu`` and held to the plain version as
+   chip_smoke.py holds the kernel (dflow bit for bit, dx within its
+   gate). The dx variants are timed with dx only:
+
+   - as_built: ``csrc/resample2d.cu`` as it is;
+   - baseline: the backward of ``--resample-baseline`` (the same C
+     interface ``resample2d_bwd(x, flow, g, dflow, dx, b, c, h, w,
+     x_dtype, flow_dtype, stream)``; the first, one-thread-a-pixel
+     kernel is ``git show 01e6139:imaginaire_tpu_torch/csrc/resample2d.cu``);
+     skipped without it;
+   - px1: dflow one pixel a thread, not 2; planes_2, planes_3: 2 or 3
+     planes' corners and g in flight for dflow, not 1;
+   - dx_px2: dx two pixels a thread, not 1; dx_planes_3: 3 planes in
+     flight with dx, not 1; dx_no_merge: a pixel's coincident corners not
+     merged; dx_no_warp_sum: one atomic a lane, no sum over the lanes on
+     one address; dx_no_neighbours: a lane's corners 01 and 11 not added
+     into the next lane's 00 and 10; dx_none: all three off;
+     dx_match_all: every lane matched and summed with its group, not
+     only the lanes whose corners lie on the frame's border ring;
+   - stream_floor (dflow alone): a coalesced kernel of 16-byte loads
+     that moves the backward's bytes (reads x, g and the flow, writes
+     dflow) and gathers nothing: the card's floor for those bytes;
+   - empty_kernel: one block that does nothing;
+   - library: ``torch.autograd.grad`` through ``F.grid_sample``
+     (bilinear, border, align_corners) in the same type, the grid's
+     gradient alone or the input's too (not held to the plain version).
+5. The spade_modulation forward and backward at the 19 calls' 7 shapes
    of a bs-4 SPADE forward (chip_smoke.MODULATION_SHAPES), fp32 and bf16,
    n_pairs 1, each case held to the plain version as chip_smoke.py holds
    the kernels (``modulation_errors``):
@@ -303,10 +333,7 @@ def probe_correlation(gen, out_dir, baseline):
 
 
 RS_SHAPES = [chip_smoke.RESAMPLE_PATH_SHAPE, chip_smoke.RESAMPLE_TEACHER_SHAPE]
-RS_COLUMN = "    const int x0 = (rt - ty * tiles_x) * RESAMPLE_TILE_W + lane;"
-RS_NEIGHBOURS = [("  constexpr int STRIDE = 32;  // columns between a thread's pixels",
-                  "  constexpr int STRIDE = 1;"),
-                 (RS_COLUMN, RS_COLUMN.replace("+ lane;", "+ lane * RESAMPLE_PIXELS;"))]
+RS_COLUMN = "  *x0 = (rt - ty * tiles_x) * tile_w + lane;"
 
 
 def rs_edits(**values):
@@ -319,6 +346,12 @@ def rs_edits(**values):
                     if line.startswith(f"#define RESAMPLE_{name.upper()} "))
         edits.append((line, f"#define RESAMPLE_{name.upper()} {value}"))
     return edits
+
+
+# each thread's pixels neighbours (columns PIXELS l, PIXELS l + 1, ... of
+# the tile) instead of 32 columns apart
+RS_NEIGHBOURS = rs_edits(stride=1) + [
+    (RS_COLUMN, RS_COLUMN.replace("+ lane;", "+ lane * RESAMPLE_PIXELS;"))]
 
 
 def rs_tile(rows):
@@ -492,6 +525,163 @@ def probe_resample(gen, out_dir, baseline):
     return rows
 
 
+# name -> edits of csrc/resample2d.cu for the backward (as built: dflow
+# in the forward's layout, 2 pixels a thread, one plane's corners and g
+# in flight; dx one pixel a thread, one plane, coincident corners merged,
+# one atomic a group of lanes on one address, neighbours' shared corners
+# added in by shuffles)
+RSB_VARIANTS = {
+    "as_built": [],
+    "px1": rs_edits(pixels=1),
+    "planes_2": rs_edits(bwd_planes=2),
+    "planes_3": rs_edits(bwd_planes=3),
+    "dx_px2": rs_edits(dx_pixels=2),
+    "dx_planes_3": rs_edits(dx_planes=3),
+    "dx_no_merge": rs_edits(dx_merge=0),
+    "dx_no_warp_sum": rs_edits(dx_warp_sum=0),
+    "dx_no_neighbours": rs_edits(dx_neighbours=0),
+    "dx_none": rs_edits(dx_merge=0, dx_warp_sum=0, dx_neighbours=0),
+    "dx_match_all": [("      const bool edge = s[i].x0 == 0 || s[i].y0 == 0 ||",
+                      "      const bool edge = true || s[i].y0 == 0 ||")],
+}
+RSB_DX_ONLY = tuple(name for name in RSB_VARIANTS if name.startswith("dx_"))
+RSB_FLOWS = ("mixed", "smooth", "border", "corners")
+STREAM_FLOOR_BWD = r"""
+#include <cuda_runtime.h>
+// the backward's bytes, coalesced 16-byte units, no gather: reads x and g
+// (C planes each) and the flow (2 planes), writes dflow (2 planes)
+// (32-bit indices: the probe's shapes are small)
+__global__ void __launch_bounds__(256) stream_bwd_kernel(
+    const uint4* __restrict__ x, const uint4* __restrict__ g,
+    const uint4* __restrict__ flow, uint4* __restrict__ dflow, int batch,
+    int channels, int plane16) {
+  const int n = batch * plane16;
+  for (int i = blockIdx.x * 256 + threadIdx.x; i < n; i += gridDim.x * 256) {
+    const int b = i / plane16, r = i - b * plane16;
+    uint4 fx = flow[b * 2 * plane16 + r];
+    uint4 fy = flow[(b * 2 + 1) * plane16 + r];
+    for (int c = 0; c < channels; ++c) {
+      const int o = (b * channels + c) * plane16 + r;
+      const uint4 v = x[o], w = g[o];
+      fx.x ^= v.x & w.x; fx.y ^= v.y & w.y; fx.z ^= v.z & w.z; fx.w ^= v.w & w.w;
+      fy.x ^= v.x | w.x; fy.y ^= v.y | w.y; fy.z ^= v.z | w.z; fy.w ^= v.w | w.w;
+    }
+    dflow[b * 2 * plane16 + r] = fx;
+    dflow[(b * 2 + 1) * plane16 + r] = fy;
+  }
+}
+extern "C" int stream_bwd(const void* x, const void* g, const void* flow,
+                          void* dflow, long long batch, long long channels,
+                          long long plane16, void* stream) {
+  int device = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, stream_bwd_kernel, 256, 0);
+  long long blocks = (batch * plane16 + 255) / 256;
+  if (blocks > (long long)sms * per_sm) blocks = (long long)sms * per_sm;
+  stream_bwd_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
+      (const uint4*)x, (const uint4*)g, (const uint4*)flow, (uint4*)dflow,
+      (int)batch, (int)channels, (int)plane16);
+  return (int)cudaGetLastError();
+}
+__global__ void empty_kernel() {}
+extern "C" int empty_fwd(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def rsb_launcher(name, lib, x, flow, g, dflow, dx):
+    """fn() that runs backward variant ``name`` once (dx None: dflow
+    alone; else dx is added into the fp32 buffer ``dx``)."""
+    b, c, h, w = x.shape
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+
+    def check(err):
+        if err != 0:
+            raise RuntimeError(f"resample2d_bwd variant {name}: CUDA error {err}")
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    if name == "stream_floor":
+        fn = lib.stream_bwd
+        fn.argtypes, fn.restype = [ptr] * 4 + [i64] * 3 + [ptr], i32
+        plane16 = h * w * x.element_size() // 16
+        ptrs = (x.data_ptr(), g.data_ptr(), flow.data_ptr(), dflow.data_ptr())
+        return lambda: check(fn(*ptrs, b, c, plane16, stream()))
+    if name == "empty_kernel":
+        fn = lib.empty_fwd
+        fn.argtypes, fn.restype = [ptr], i32
+        return lambda: check(fn(stream()))
+    fn = lib.resample2d_bwd  # every variant and the baseline: one interface
+    fn.argtypes, fn.restype = [ptr] * 5 + [i64] * 4 + [i32] * 2 + [ptr], i32
+    code = rs._DTYPE_CODES
+    ptrs = (x.data_ptr(), flow.data_ptr(), g.data_ptr(), dflow.data_ptr(),
+            None if dx is None else dx.data_ptr())
+    return lambda: check(fn(*ptrs, b, c, h, w, code[x.dtype], code[flow.dtype],
+                            stream()))
+
+
+def probe_resample_bwd(gen, out_dir, baseline):
+    """The backward's variants at the training warp (2, 3, 512, 1024), fp32
+    and bf16, under chip_smoke's mixed, smooth, border and all-corners
+    flows, dflow alone and with dx, timed in turns beside the library
+    call; each variant held to the plain version as chip_smoke.py holds
+    the kernel (dflow bit for bit, dx within its gate)."""
+    specs = {name: (edits, None) for name, edits in RSB_VARIANTS.items()}
+    if baseline is not None:
+        specs["baseline"] = ([], baseline.read_text())
+    specs["stream_floor"] = ([], STREAM_FLOOR_BWD)
+    libs = build_variants(rs.KERNEL, {f"bwd_{k}": v for k, v in specs.items()}, out_dir)
+    libs = {name[len("bwd_"):]: lib for name, lib in libs.items()}
+    libs["empty_kernel"] = libs["stream_floor"]
+    shape = chip_smoke.RESAMPLE_BWD_PATH_SHAPE
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+        g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        dflow = torch.empty((shape[0], 2) + shape[2:], dtype=dtype, device="cuda")
+        dx = torch.zeros(shape, device="cuda")
+        for flow_name in RSB_FLOWS:
+            flow = chip_smoke.resample_bwd_flow(flow_name, shape, gen).to(dtype)
+            for need_dx in (False, True):
+                names = [n for n in libs if need_dx or n not in RSB_DX_ONLY]
+                if need_dx:
+                    names.remove("stream_floor")  # the floor of dflow's bytes
+                fns = {n: rsb_launcher(n, libs[n][0], x, flow, g, dflow,
+                                       dx if need_dx else None) for n in names}
+                fns["library"] = chip_smoke.grid_sample_bwd(x, flow, g, need_dx)
+                names.append("library")
+                times = {n: [] for n in names}
+                for n in names + names[::-1]:
+                    times[n].append(chip_smoke.time_ms(fns[n], iters=20))
+                bound, _ = chip_smoke.resample_bwd_bound_ms(shape, x.element_size(),
+                                                            need_dx)
+                for n in names:
+                    ms = sum(times[n]) / len(times[n])
+                    row = {"probe": "resample2d_bwd", "variant": n,
+                           "shape": list(shape), "dtype": str(dtype).split(".")[-1],
+                           "flow": flow_name, "need_dx": need_dx, "ms": times[n],
+                           "bound_ms": bound, "bound_share": bound / ms,
+                           "ptxas": libs[n][1] if n in libs else None}
+                    if n in specs and n != "stream_floor":  # held to plain
+                        dx.zero_()
+                        fns[n]()
+                        got_dx = dx.to(dtype) if need_dx else None
+                        bitwise, dx_err, ok = chip_smoke.resample_bwd_errors(
+                            rs, x, flow, g, got_dx, dflow)
+                        row.update(dflow_bitwise=bitwise, dx_error=dx_err)
+                        if not ok:
+                            raise AssertionError(f"resample2d_bwd variant {n} "
+                                                 f"disagrees with the plain "
+                                                 f"version: {row}")
+                    rows.append(row)
+                    print(json.dumps(row), flush=True)
+    return rows
+
+
 def baseline_modulation(lib):
     """fwd(x, gs, bs) and bwd(x, gs, mean, rstd, g) of a kernel source
     whose C interface takes no plan (that of commit 26063d5)."""
@@ -661,12 +851,13 @@ def probe_modulation(gen, out_dir, baseline):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", type=Path, default=None)
-    parser.add_argument("--probes", default="timer,correlation,resample2d,modulation",
+    parser.add_argument("--probes",
+                        default="timer,correlation,resample2d,resample2d_bwd,modulation",
                         help="comma-separated: timer, correlation, resample2d, "
-                             "modulation")
+                             "resample2d_bwd, modulation")
     parser.add_argument("--resample-baseline", type=Path, default=None,
                         help="an earlier csrc/resample2d.cu to time beside "
-                             "the kernel as built")
+                             "the kernels as built (forward and backward)")
     parser.add_argument("--correlation-baseline", type=Path, default=None,
                         help="an earlier csrc/correlation.cu to time beside "
                              "the kernel as built")
@@ -676,7 +867,8 @@ def main():
                              "kernels as built")
     args = parser.parse_args()
     probes = set(args.probes.split(","))
-    if not probes <= {"timer", "correlation", "resample2d", "modulation"}:
+    if not probes <= {"timer", "correlation", "resample2d", "resample2d_bwd",
+                      "modulation"}:
         parser.error(f"unknown probes in {args.probes!r}")
     if not torch.cuda.is_available():
         print("torch_kernel_probe: no CUDA device available", file=sys.stderr)
@@ -693,6 +885,8 @@ def main():
             rows += probe_correlation(gen, Path(tmp), args.correlation_baseline)
         if "resample2d" in probes:
             rows += probe_resample(gen, Path(tmp), args.resample_baseline)
+        if "resample2d_bwd" in probes:
+            rows += probe_resample_bwd(gen, Path(tmp), args.resample_baseline)
         if "modulation" in probes:
             rows += probe_modulation(gen, Path(tmp), args.modulation_baseline)
     if args.json is not None:

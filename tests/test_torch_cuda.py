@@ -39,7 +39,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from chip_smoke import MODULATION_EDGE, at_offset, bf16_ulps, dx_term_scale
+from chip_smoke import (MODULATION_EDGE, at_offset, bf16_ulps, corners_flow,
+                        dx_term_scale, resample_bwd_errors)
 from imaginaire_tpu_torch.layers.activation_norm import SpatiallyAdaptiveNorm
 from imaginaire_tpu_torch.ops import build
 from imaginaire_tpu_torch.ops import channelnorm as cn
@@ -384,6 +385,45 @@ def test_resample2d_backward_kernel_matches_plain(cuda_device, shape, scale, dty
                 assert err <= 1e-5, err
             else:
                 assert bf16_ulps(dx, want_dx, scale=terms) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,flow_kind", [
+    ((2, 3, 512, 1024), "corners"),  # the training warp, every corner clamped
+    ((1, 1, 37, 53), "corners"),     # C = 1
+    ((2, 4, 20, 70), "mixed"),       # C = 4: a second group of planes;
+    ((2, 4, 20, 70), "corners"),     # W not a multiple of the 64-column tile
+    ((3, 7, 5, 130), "mixed"),       # B = 3, C = 7 (past two groups of 3),
+    ((3, 7, 5, 130), "corners"),     # H < the tile's 8 rows
+    ((1, 2, 6, 64), "mixed"),        # H < 8, W one whole tile
+])
+def test_resample2d_backward_edges_match_plain(cuda_device, shape, flow_kind, dtype):
+    """The backward kernel through ``resample2d_bwd`` and through autograd,
+    dflow alone and with dx, against the plain backward: dflow bit for bit,
+    dx within chip_smoke.py's gate (fp32 1e-5 and bf16 one ulp of the
+    magnitude of the terms it sums). The all-corners flow clamps every
+    pixel's four corners to one of the frame's four corner pixels: the
+    most dx atomics onto one address."""
+    x, flow = _warp_inputs(shape, dtype, dtype, cuda_device)
+    if flow_kind == "corners":
+        gen = torch.Generator(device=cuda_device).manual_seed(2)
+        flow = corners_flow(shape, gen).to(dtype)
+    g = torch.randn(shape, generator=torch.Generator(device=cuda_device).manual_seed(1),
+                    device=cuda_device).to(dtype)
+    for need_dx in (True, False):
+        before = rs.bwd_launches
+        dx, dflow = rs.resample2d_bwd(x, flow, g, need_dx)
+        xi = x.clone().requires_grad_(need_dx)
+        fi = flow.clone().requires_grad_(True)
+        grads = torch.autograd.grad(rs.resample2d(xi, fi),
+                                    [xi, fi] if need_dx else [fi], g)
+        torch.cuda.synchronize()
+        assert rs.bwd_launches == before + 2
+        for got_dx, got_dflow in ((dx, dflow), (grads[0] if need_dx else None, grads[-1])):
+            assert (got_dx is None) == (not need_dx)
+            bitwise, dx_err, ok = resample_bwd_errors(rs, x, flow, g, got_dx, got_dflow)
+            assert ok, (bitwise, dx_err)
 
 
 @pytest.mark.cuda

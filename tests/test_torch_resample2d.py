@@ -17,7 +17,8 @@ The backward (``resample2d_bwd_plain`` and the autograd Function) is held
 to ``jax.vjp`` of the 'jnp' and 'pallas_interpret' routes (the Pallas
 route's backward is the vjp of the jnp warp) in fp32: dx and dflow within
 1e-5 of the reference's max magnitude, under mixed, border-clamped,
-entirely out-of-range and exact-integer flows; the Function passes
+entirely out-of-range, exact-integer and all-corners flows (every sample
+just or far past a corner of the frame); the Function passes
 ``torch.autograd.gradcheck`` in fp64. In bf16 the port keeps fp32
 coordinates: its backward equals its fp32 backward of the same
 (bf16-valued) inputs rounded once, and is held to the JAX vjp of
@@ -127,6 +128,21 @@ def outside_flow(rng, b, h, w):
     return (sign * rng.uniform(2.0, 3.0, (b, h, w, 2)) * np.array([w, h])).astype(np.float32)
 
 
+def corners_flow(rng, b, h, w):
+    """(B, H, W, 2) flow whose every sample point lies past a corner of the
+    frame on both axes: half of them within one pixel of it (floor -1 or
+    n - 1, where the weights come from the unclamped fractions), half 1.5
+    frame sizes out. All four corners of every pixel clamp to one of the
+    frame's four corner pixels."""
+    size = np.array([w, h], np.float64)
+    frac = rng.uniform(1 / 16, 15 / 16, (b, h, w, 2))
+    near = rng.randint(0, 2, (b, h, w, 2)) * size - 1 + frac
+    far = rng.choice([-1.0, 1.0], (b, h, w, 2)) * (1.5 * size + frac)
+    pixel = np.stack(np.meshgrid(np.arange(w), np.arange(h)), -1)
+    return np.where(rng.randint(0, 2, (b, h, w, 1)) == 0, near - pixel,
+                    far).astype(np.float32)
+
+
 def integer_flow(rng, b, h, w):
     """(B, H, W, 2) integer flows: every sample point on a pixel centre,
     where floor's convention decides the corners."""
@@ -148,7 +164,8 @@ def rel_err(got, want):
 
 
 @pytest.mark.parametrize("impl", ["jnp", "pallas_interpret"])
-@pytest.mark.parametrize("flow_kind", ["mixed", "border", "outside", "integer"])
+@pytest.mark.parametrize("flow_kind", ["mixed", "border", "outside", "integer",
+                                       "corners"])
 def test_backward_plain_matches_jax_vjp_fp32(impl, flow_kind):
     rng = np.random.RandomState(3)
     b, h, w = 2, 8, 16
@@ -157,16 +174,19 @@ def test_backward_plain_matches_jax_vjp_fp32(impl, flow_kind):
     flow = {"mixed": lambda: mixed_flow(rng, b, h, w),
             "border": lambda: border_flow(b, h, w),
             "outside": lambda: outside_flow(rng, b, h, w),
-            "integer": lambda: integer_flow(rng, b, h, w)}[flow_kind]()
+            "integer": lambda: integer_flow(rng, b, h, w),
+            "corners": lambda: corners_flow(rng, b, h, w)}[flow_kind]()
     want_dx, want_dflow = jax_vjp(impl, x, flow, g)
     before = rs.bwd_launches
     dx, dflow = rs.resample2d_bwd(nchw(x), nchw(flow), nchw(g))
     assert rs.bwd_launches == before  # the CPU takes the plain version
     assert dx.dtype == dflow.dtype == torch.float32
     assert rel_err(nhwc(dx), want_dx) <= 1e-5
-    if flow_kind == "outside":
-        # every pixel's corners clamp to one border pixel: dflow is 0, and
+    if flow_kind in ("outside", "corners"):
+        # every pixel's corners clamp to one corner pixel: dflow is 0, and
         # the JAX vjp's is the rounding of a difference of two equal sums
+        corners = torch.stack(rs._sample_points(nchw(flow), torch.float32)[2])
+        assert (corners == corners[:1]).all()
         assert not nhwc(dflow).any() and np.abs(want_dflow).max() <= 1e-6
     else:
         assert rel_err(nhwc(dflow), want_dflow) <= 1e-5
@@ -297,6 +317,32 @@ def test_kernel_tiles_cover_each_pixel_once(shape):
     k = kernel_constants()
     _, tiles = kernel_cover(shape, k, 1)
     for blocks in sorted({1, 3, tiles}):  # a grid of any size up to the tiles
+        counts, _ = kernel_cover(shape, k, blocks)
+        assert counts.min() == 1 and counts.max() == 1
+
+
+def test_backward_kernel_shares_the_forward_tiling():
+    """The backward kernel walks tile_pixel's tiles: the forward's for
+    dflow alone, 32 columns a pixel a thread with dx; it ships with dx's
+    three contention cuts on and at most 3 planes in flight."""
+    src = build.source_path(rs.KERNEL).read_text()
+    k = kernel_constants()
+    body = src[src.index("resample2d_bwd_kernel(const T*"):]
+    assert "DX ? 32 * RESAMPLE_DX_PIXELS : RESAMPLE_TILE_W;" in body
+    assert "tile_pixel(t, tiles_x, per_image, TILE_W, &b, &y, &x0);" in body
+    assert k["DX_MERGE"] == k["DX_WARP_SUM"] == k["DX_NEIGHBOURS"] == 1
+    assert 1 <= k["BWD_PLANES"] <= 3 and 1 <= k["DX_PLANES"] <= 3
+    assert k["DX_PIXELS"] in (1, 2)
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 37, 53), (3, 5, 1, 7), (1, 2, 9, 1027)])
+def test_backward_dx_tiles_cover_each_pixel_once(shape):
+    """The dx kernel's tiles (32 RESAMPLE_DX_PIXELS columns) cover each
+    pixel once, for a grid of any size up to the tiles."""
+    k = dict(kernel_constants())
+    k["PIXELS"] = k["DX_PIXELS"]
+    _, tiles = kernel_cover(shape, k, 1)
+    for blocks in sorted({1, 3, tiles}):
         counts, _ = kernel_cover(shape, k, blocks)
         assert counts.min() == 1 and counts.max() == 1
 
