@@ -71,7 +71,9 @@ Phases, one line each; any failure exits non-zero:
    in-process (batch 4, 256x256, bf16, ``remat: blocks``; the launch
    counters are reset just before and read just after: 57 forward and 19
    backward an iteration, plus 19 forward for each generator forward of
-   the image snapshots), the losses in ``meters.jsonl`` are finite and
+   the image snapshots: G, the averaged copy, and the re-estimation of
+   the averaged copy's BatchNorm statistics over the training loader's 2
+   batches before it), the losses in ``meters.jsonl`` are finite and
    the checkpoint's files verify; a second ``main`` resumes to 8, every
    restored tensor equal to the saved state bit for bit and its first
    batch equal to an unbroken run's; one byte of the newest checkpoint is
@@ -103,7 +105,29 @@ Phases, one line each; any failure exits non-zero:
    versions. The median iteration and frames/s (``speed_benchmark``), D
    and G step ms by frame type, peak memory, the host's data wait and
    the checkpoint's bytes and save seconds are printed;
-10. a ``kernels`` JSON line, the nvidia-smi line, and the final JSON line.
+10. SPADE evaluation (``spade_eval_entry``): Inception-v3 at its real
+   width (21.8 M parameters, seeded random-init weights: the repository
+   has no converted ones) on a (2, 3, 299, 299) batch on the card against
+   the port's CPU run (TF32 off), and its images/s at batch 4; phase 8's
+   dataset and config plus ``trainer.fid_random_init``:
+   ``imaginaire_tpu_torch.train.main`` trains 2 iterations with an image
+   snapshot at each and a checkpoint at the second, whose
+   ``write_metrics`` computes FID and FID_ema in the loop; a corrupt copy
+   of the checkpoint (one byte flipped) is put first in the sweep's
+   order; ``imaginaire_tpu_torch.evaluate.main`` sweeps the logdir
+   (``--metrics fid,kid,prdc``): the copy is quarantined and skipped, the
+   checkpoint gets FID, FID_ema, best_FID, KID and PRDC, all finite and
+   in ``meters.jsonl``; a second sweep of the checkpoint alone agrees.
+   The launch counters are reset just before and read just after each
+   run (the loop: 2 D+G steps, the 2 image snapshots' and the in-loop
+   metrics' forwards, 342 launches; a sweep: 8 bs-4 forwards, 152). The
+   averaged copy's re-estimation through the kernel is held to the plain
+   composition (TF32 off), the live network unchanged bit for bit, and
+   ``ServingEngine.load_weights`` serves the checkpoint's averaged
+   weights and statistics bit for bit (and raises on an empty logdir).
+   The sweeps' seconds, the re-estimation's seconds and batches and peak
+   memory are printed;
+11. a ``kernels`` JSON line, the nvidia-smi line, and the final JSON line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -111,9 +135,11 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -315,7 +341,10 @@ TEACHER_PARAMS = 162_518_834
 # size (rows, columns) trains 6 iterations, resumes to 8, survives a
 # corrupted checkpoint and feeds inference; snapshots every 7 iterations
 # (7 is mid-epoch: 8 items at batch 4 make 2 iterations an epoch), images
-# every 3 (each image snapshot runs G and its averaged copy once)
+# every 3 (each image snapshot runs G and its averaged copy once, and
+# first re-estimates the averaged copy's BatchNorm statistics over the
+# training loader's 2 batches: the COCO-Stuff config's style-code norms
+# stay sync_batch under the instance override)
 ENTRY_ITEMS = 8
 ENTRY_HW = (300, 320)
 ENTRY_NUM_CLASSES = 183
@@ -323,6 +352,43 @@ ENTRY_SEED = 0
 ENTRY_RUNS = (6, 8)
 ENTRY_OVERRIDES = {"snapshot_save_iter": 7, "logging_iter": 2,
                    "image_save_iter": 3, "checkpoints_to_keep": 2}
+# G forwards of one re-estimation: min(the config's 30, the training
+# loader's batches)
+ENTRY_RECAL_BATCHES = min(30, ENTRY_ITEMS // TRAIN_BATCH)
+
+# SPADE evaluation (phase 10): the same packed dataset and config, plus
+# ``trainer.fid_random_init`` (no Inception-v3 weights in the repository);
+# two training iterations, an image snapshot at each (the first
+# re-estimates the averaged copy's statistics) and a checkpoint at the
+# second, which carries them, then ``write_metrics`` (FID and FID_ema)
+# inside the loop; then the evaluate entry's sweeps. A sweep of one
+# checkpoint runs G on the validation loader's 2 batches for FID, for
+# FID_ema and for KID/PRDC, and re-estimates the averaged copy's
+# statistics over the training loader's 2 batches before FID_ema: 8 bs-4
+# forwards, 152 modulation launches
+EVAL_TRAIN_ITERS = 2
+EVAL_OVERRIDES = {"snapshot_save_iter": EVAL_TRAIN_ITERS, "image_save_iter": 1,
+                  "logging_iter": 1, "trainer": {"fid_random_init": True}}
+EVAL_VAL_BATCHES = ENTRY_ITEMS // TRAIN_BATCH
+EVAL_SWEEP_FORWARDS = 3 * EVAL_VAL_BATCHES + ENTRY_RECAL_BATCHES
+EVAL_METRICS = ("FID", "FID_ema", "best_FID", "KID", "PRDC_precision", "PRDC_recall",
+                "PRDC_density", "PRDC_coverage")
+# a second sweep of the same checkpoint: FID, FID_ema and KID relative
+# (the same forwards on the same card; the features' covariances of 8
+# samples are singular, so sqrtm is the least stable step); PRDC within
+# one sample's membership of the 8
+TOL_SWEEP_REL = 1e-3
+TOL_SWEEP_PRDC = 1.0 / ENTRY_ITEMS
+# the re-estimated statistics through the kernel against the plain
+# composition (TF32 off): max-abs over the larger of the statistic's and
+# the live statistic's max magnitude
+TOL_RECAL_REL = 1e-3
+# Inception-v3 on the card against the port's CPU run of the same
+# random-init weights, a (2, 3, 299, 299) batch, TF32 off: max-abs over
+# the features' max magnitude (cuDNN's and the CPU's fp32 convolutions sum
+# in other orders through ~50 layers)
+TOL_INCEPTION_REL = 1e-3
+INCEPTION_PARAMS = 21_820_000
 
 
 # vid2vid training from data on disk (phase 9): a seeded packed video
@@ -1328,7 +1394,7 @@ def spade_train_entry(spade_mod, device="cuda", overrides=None, items=ENTRY_ITEM
         peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else "not measured"
         n_images = len(list((logdir / "images").glob("*.png")))
         want = {"forward": ENTRY_RUNS[0] * TRAIN_FWD_LAUNCHES
-                + n_images * 2 * CALLS_PER_FORWARD,
+                + n_images * (2 + ENTRY_RECAL_BATCHES) * CALLS_PER_FORWARD,
                 "backward": ENTRY_RUNS[0] * TRAIN_BWD_LAUNCHES}
         if launches != want or trainer.compute_dtype != torch.bfloat16 \
                 or n_images != ENTRY_RUNS[0] // ENTRY_OVERRIDES["image_save_iter"]:
@@ -1453,6 +1519,236 @@ def spade_train_entry(spade_mod, device="cuda", overrides=None, items=ENTRY_ITEM
            "inference_s": inference_s, "inference_images": len(pngs),
            "inference_launches": spade_mod.launches}
     phase("spade_train_entry", **row)
+    return row
+
+
+def check_inception(device="cuda"):
+    """Inception-v3 at its real width on the card against the port's CPU
+    run of the same seeded weights (TF32 off inside the extractor), and
+    its images/s at 299x299, batch 4."""
+    from imaginaire_tpu_torch.evaluation import inception
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 3, 299, 299), generator=gen)
+    card = inception.load_params(random_init=True, device=device, seed=0)
+    host = inception.load_params(random_init=True, device="cpu", seed=0)
+    n_params = sum(p.numel() for p in card.parameters())
+    extract = inception.make_extractor(card)
+    got = extract(x.to(device)).cpu()
+    want = inception.make_extractor(host)(x)
+    err = float((got - want).abs().max() / want.abs().max())
+    batch = torch.randn((4, 3, 299, 299), generator=gen).to(device)
+    ms = time_ms(lambda: extract(batch), iters=10, warmup=2) if device == "cuda" else None
+    row = {"params": n_params, "shape": list(got.shape), "max_rel_err": err,
+           "bs4_ms": ms, "images_per_s": 4 / (ms / 1e3) if ms else "not measured",
+           "tf32": False}
+    if n_params != INCEPTION_PARAMS or tuple(got.shape) != (2, 2048) \
+            or not torch.isfinite(got).all() or err > TOL_INCEPTION_REL:
+        raise AssertionError(f"Inception-v3 on the card: {row}")
+    del card, host
+    return row
+
+
+def recal_check(trainer, spade_mod):
+    """The averaged copy's re-estimation through the kernel and through
+    the plain composition (TF32 off), the live network left bit for bit."""
+    from imaginaire_tpu_torch.layers.activation_norm import SpatiallyAdaptiveNorm
+
+    net = trainer.net_G
+    live = {k: v.clone() for k, v in net.state_dict().items()}
+    fused = {m.fused_modulation for m in net.modules() if isinstance(m, SpatiallyAdaptiveNorm)}
+    before = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {}
+    try:
+        for route, value in (("kernel", next(iter(fused))), ("plain", "none")):
+            set_fused(net, value)
+            trainer._ema_bn_recal_iter = None
+            spade_mod.launches = 0
+            if trainer.device.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.recalculate_model_average_batch_norm_statistics()
+            if trainer.device.type == "cuda":
+                torch.cuda.synchronize()
+            runs[route] = (time.perf_counter() - t0, spade_mod.launches,
+                           {k: v.clone() for k, v in trainer._ema_batch_stats.items()})
+    finally:
+        set_fused(net, next(iter(fused)))
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before
+    (seconds, launches, kernel), (_, plain_launches, plain) = runs["kernel"], runs["plain"]
+    buffers = dict(net.named_buffers())
+    err = max(float((kernel[k] - plain[k]).abs().max())
+              / max(float(plain[k].abs().max()), float(buffers[k].abs().max()))
+              for k in kernel)
+    moved = min(float((kernel[k] - buffers[k]).abs().max()) for k in kernel)
+    unchanged = all(torch.equal(v, live[k]) for k, v in net.state_dict().items())
+    row = {"seconds": seconds, "batches": ENTRY_RECAL_BATCHES, "statistics": len(kernel),
+           "launches": launches, "plain_launches": plain_launches,
+           "max_rel_err_vs_plain": err, "min_max_abs_vs_live": moved,
+           "live_unchanged": unchanged}
+    if len(fused) != 1 or not kernel or err > TOL_RECAL_REL or moved <= 0 or not unchanged \
+            or launches != ENTRY_RECAL_BATCHES * CALLS_PER_FORWARD or plain_launches != 0:
+        raise AssertionError(f"re-estimation: {row}")
+    return row
+
+
+def spade_eval_entry(spade_mod, device="cuda", overrides=None, items=ENTRY_ITEMS,
+                     hw=ENTRY_HW):
+    """Phase 10: SPADE evaluation at COCO-Stuff width through the port's
+    ``python -m imaginaire_tpu_torch.evaluate``, in-process."""
+    from imaginaire_tpu_torch import evaluate, train
+    from imaginaire_tpu_torch.config import Config, recursive_update
+    from imaginaire_tpu_torch.serving.engine import ServingEngine, ServingError
+    from imaginaire_tpu_torch.trainers.base import EMA_BN_GROUP
+    from imaginaire_tpu_torch.trainers.spade import Trainer
+    from imaginaire_tpu_torch.utils import checkpoint as ckpt_lib
+    from imaginaire_tpu_torch.utils.meters import ScalarWriter
+
+    cuda = device == "cuda"
+    torch.backends.cudnn.allow_tf32 = True  # G runs the defaults; Inception pins fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    inception_row = check_inception(device)
+    with tempfile.TemporaryDirectory(prefix="spade_eval_entry_") as tmp:
+        tmp = Path(tmp)
+        packed = write_entry_dataset(tmp, items, hw)
+        eval_overrides = copy.deepcopy(EVAL_OVERRIDES)
+        recursive_update(eval_overrides, overrides or {})
+        cfg_path = entry_config(tmp, packed, eval_overrides)
+        logdir = tmp / "log"
+        base = ["--config", str(cfg_path), "--seed", str(ENTRY_SEED), "--device", device]
+
+        # 1. two iterations; a checkpoint at the second, then write_metrics
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        spade_mod.launches = 0
+        t0 = time.perf_counter()
+        trainer = train.main(base + ["--logdir", str(logdir),
+                                     "--max_iter", str(EVAL_TRAIN_ITERS)])
+        train_s = time.perf_counter() - t0
+        loop_launches = spade_mod.launches
+        # the D+G steps; an image snapshot at each iteration (G and the
+        # averaged copy, after a re-estimation at the first); at the
+        # second, FID (the validation batches), the re-estimation (the
+        # training batches) and FID_ema, before its image snapshot
+        want_loop = EVAL_TRAIN_ITERS * TRAIN_FWD_LAUNCHES + (
+            EVAL_TRAIN_ITERS * 2 + 2 * ENTRY_RECAL_BATCHES
+            + 2 * EVAL_VAL_BATCHES) * CALLS_PER_FORWARD
+        in_loop = {r["name"]: r["value"] for r in ScalarWriter(str(logdir)).read()
+                   if r["kind"] == "counter" and r["step"] == EVAL_TRAIN_ITERS}
+        if loop_launches != want_loop or not {"FID", "FID_ema", "best_FID"} <= set(in_loop):
+            raise AssertionError(f"write_metrics in the loop: {loop_launches} launches, "
+                                 f"expected {want_loop}; meters {sorted(in_loop)}")
+        del trainer
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # 2. a corrupt copy of the checkpoint, first in the sweep's order
+        path1 = ckpt_lib.latest_checkpoint_path(str(logdir))
+        bad = str(logdir / ckpt_lib.checkpoint_name(0, 0))
+        t0 = time.perf_counter()
+        shutil.copytree(path1, bad)
+        shutil.copy(path1 + ".integrity.json", bad + ".integrity.json")
+        with open(Path(bad) / ckpt_lib.STATE_FILE, "r+b") as f:
+            f.seek(f.seek(0, 2) // 2)
+            byte = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        copy_s = time.perf_counter() - t0
+
+        # 3. the sweep: the corrupt copy quarantined, the checkpoint evaluated
+        captured = []
+        write_metrics = Trainer.write_metrics
+
+        def capture(self):
+            captured[:] = [self]
+            return write_metrics(self)
+
+        sweeps, sweep_s, launches = [], [], []
+        Trainer.write_metrics = capture
+        try:
+            for i, target in enumerate((["--checkpoint_logdir", str(logdir)],
+                                        ["--checkpoint", path1])):
+                captured.clear()
+                spade_mod.launches = 0
+                t0 = time.perf_counter()
+                sweeps.append(evaluate.main(
+                    base + target + ["--metrics", "fid,kid,prdc",
+                                     "--logdir", str(tmp / f"eval{i}")]))
+                sweep_s.append(time.perf_counter() - t0)
+                launches.append(spade_mod.launches)
+                if cuda:
+                    torch.cuda.empty_cache()
+        finally:
+            Trainer.write_metrics = write_metrics
+        trainer = captured[0]
+        want_sweep = EVAL_SWEEP_FORWARDS * CALLS_PER_FORWARD
+        rows = [s[0] for s in sweeps]
+        if [len(s) for s in sweeps] != [1, 1] or launches != [want_sweep, want_sweep] \
+                or Path(bad).exists() or not Path(bad + ".corrupt").is_dir() \
+                or rows[0]["iteration"] != EVAL_TRAIN_ITERS:
+            raise AssertionError(f"sweeps: {[len(s) for s in sweeps]} checkpoints evaluated, "
+                                 f"launches {launches} (expected {want_sweep} each), "
+                                 f"corrupt copy quarantined: {Path(bad + '.corrupt').is_dir()}")
+        recorded = {r["name"] for r in ScalarWriter(str(tmp / "eval0")).read()
+                    if r["kind"] == "counter" and r["step"] == EVAL_TRAIN_ITERS}
+        bad_values = [k for k in EVAL_METRICS if not np.isfinite(rows[0].get(k, np.nan))]
+        if bad_values or rows[0]["FID"] < 0 or rows[0]["FID_ema"] < 0 \
+                or not set(EVAL_METRICS) <= recorded:
+            raise AssertionError(f"metrics {rows[0]}, in meters.jsonl {sorted(recorded)}")
+        sweep_diff = {}
+        for k in EVAL_METRICS:
+            a, b = rows[0][k], rows[1][k]
+            sweep_diff[k] = abs(a - b) if k.startswith("PRDC") else abs(a - b) / max(abs(a), 1e-30)
+        over = [k for k, d in sweep_diff.items()
+                if d > (TOL_SWEEP_PRDC if k.startswith("PRDC") else TOL_SWEEP_REL)]
+        if over:
+            raise AssertionError(f"two sweeps of one checkpoint differ: {over}: {rows}")
+
+        # 4. the re-estimation against the plain composition
+        recal = recal_check(trainer, spade_mod)
+
+        # 5. the engine serves what the checkpoint restored
+        engine = ServingEngine(trainer.cfg, trainer=trainer).initialize()
+        eval_logdir = trainer.cfg.logdir
+        trainer.cfg.logdir = str(tmp / "empty")
+        try:
+            engine.load_weights()
+            raise AssertionError("load_weights on an empty logdir did not raise")
+        except ServingError:
+            pass
+        trainer.cfg.logdir = str(logdir)  # the training run's: its pointer
+        t0 = time.perf_counter()
+        loaded = engine.load_weights()
+        load_s = time.perf_counter() - t0
+        trainer.cfg.logdir = eval_logdir
+        stored = torch.load(Path(path1) / ckpt_lib.STATE_FILE, map_location="cpu",
+                            weights_only=True, mmap=True)["state"]
+        served = engine._variables
+        ema_keys = [k for k in stored if k.startswith("ema_G/")]
+        bn_keys = [k for k in stored if k.startswith(EMA_BN_GROUP)]
+        differ = [k for k in ema_keys if not torch.equal(served[k[len("ema_G/"):]].cpu(), stored[k])]
+        differ += [k for k in bn_keys
+                   if not torch.equal(served[k[len(EMA_BN_GROUP):]].cpu(), stored[k])]
+        if not loaded or not bn_keys or not ema_keys or differ:
+            raise AssertionError(f"engine: loaded {loaded}, {len(ema_keys)} averaged weights "
+                                 f"and {len(bn_keys)} statistics, differing {differ[:5]}")
+        del stored, engine, trainer, captured
+        peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else "not measured"
+        if cuda:
+            torch.cuda.empty_cache()
+    import scipy
+
+    row = {"scipy": scipy.__version__, "inception": inception_row, "train_s": train_s,
+           "loop_launches": loop_launches,
+           "in_loop_metrics": in_loop, "corrupt_copy_s": copy_s, "sweep_s": sweep_s,
+           "sweep_launches": launches, "sweep_forwards": EVAL_SWEEP_FORWARDS,
+           "metrics": rows[0], "second_sweep_diff": sweep_diff,
+           "quarantined": Path(bad).name, "recalculation": recal,
+           "engine_load_s": load_s, "engine_tensors_compared": len(ema_keys) + len(bn_keys),
+           "peak_mem_gib": peak, "phase_s": time.perf_counter() - t_phase}
+    phase("spade_eval_entry", **row)
     return row
 
 
@@ -2201,6 +2497,7 @@ def main():
     train = spade_train_path(spade_mod)
     entry = spade_train_entry(spade_mod)
     v2v_train = vid2vid_train_entry(rs, corr, cn)
+    evaluation = spade_eval_entry(spade_mod)
 
     def per_call_set(table, dtype):
         sel = [r for r in table if r["dtype"].startswith(dtype)]
@@ -2270,7 +2567,7 @@ def main():
              "main_path": main, "vid2vid_path": v2v, "teacher_path": teacher,
              "modulation_bwd": bwd_rows, "spade_train_path": train,
              "spade_train_entry": entry, "resample2d_bwd": rs_bwd_rows,
-             "vid2vid_train_entry": v2v_train,
+             "vid2vid_train_entry": v2v_train, "spade_eval_entry": evaluation,
              "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -106,9 +106,13 @@ class BatchNorm(nn.Module):
     returns x's type; the running statistics move towards them,
     ``0.9 * old + 0.1 * batch``, with the biased variance (not the
     unbiased one that ``F.batch_norm`` would store), and only in the
-    step of the network that owns them (``update_state``)."""
+    step of the network that owns them (``update_state``). A list in
+    ``record`` receives each training forward's (mean, biased variance)
+    in fp32: the averaged generator's re-estimation reads them there
+    (``trainers/base.py``)."""
 
     update_state = False  # move the running statistics (layers/state.py)
+    record = None
 
     def __init__(self, num_features, affine=True, eps=1e-5, momentum=0.9):
         super().__init__()
@@ -132,6 +136,8 @@ class BatchNorm(nn.Module):
         x32 = x.float()
         mean = x32.mean(dim=axes)
         var = torch.clamp_min(x32.square().mean(dim=axes) - mean.square(), 0.0)
+        if self.record is not None:
+            self.record.append((mean.detach(), var.detach()))
         if self.update_state:
             with torch.no_grad():
                 m = self.momentum
@@ -265,8 +271,10 @@ class SpatiallyAdaptiveNorm(_BaseNormHolder):
                 gamma, beta = getattr(self, f"gb_{i}")(hidden).chunk(2, dim=1)
             pairs.append((gamma, beta))
         if _fusable_modulation(self.fused_modulation, self.base_norm, x, pairs):
-            return spade_modulation(x, [g for g, _ in pairs],
-                                    [b for _, b in pairs])
+            # a shared projection's chunks are strided views; the kernel
+            # takes contiguous NCHW
+            return spade_modulation(x.contiguous(), [g.contiguous() for g, _ in pairs],
+                                    [b.contiguous() for _, b in pairs])
         y = self.base(x)
         if not pairs:
             return y

@@ -18,12 +18,14 @@ Frame-recurrent families (vid2vid) are served as streams instead:
 stream's next frame. Each :class:`StreamSession` keeps its own history
 rings on the device, so many streams interleave on one engine.
 
-Weights: ``initialize`` draws fresh seeded weights; the forward runs
-``torch.func.functional_call`` of the trainer's ``net_G`` on
-``trainer.inference_params()``, as the JAX engine applies the trainer's
-module to its inference variables. Still to be ported (ROADMAP.md): the
-CUDA-graph executable pool, tracing, SLO budgets and telemetry,
-checkpoint loading.
+Weights: ``initialize`` draws fresh seeded weights; ``load_weights``
+restores a checkpoint through the trainer's verified path and serves it.
+The forward runs ``torch.func.functional_call`` of the trainer's
+``net_G`` on ``trainer.inference_params()`` (the averaged weights with
+the BatchNorm statistics re-estimated for them, when the checkpoint
+carries them), as the JAX engine applies the trainer's module to its
+inference variables. Still to be ported (ROADMAP.md): the CUDA-graph
+executable pool, tracing, SLO budgets and telemetry.
 """
 
 from __future__ import annotations
@@ -231,7 +233,33 @@ class ServingEngine:
         self.refresh_weights()
         return self
 
+    def load_weights(self, checkpoint=None, require=True):
+        """Restore the weights to serve, only through the verified path:
+        with no ``checkpoint`` the trainer's logdir pointer (corrupt
+        candidates quarantined, falling back to the newest that
+        verifies); an explicit path is verified, and quarantined on a
+        mismatch with a fallback to the newest verifiable checkpoint
+        beside it. With ``require`` (the serving default) it raises
+        ``ServingError`` when nothing verifiable restored: a server never
+        runs weights training would refuse. Returns whether a checkpoint
+        restored."""
+        if self.trainer.state is None:
+            raise ServingError("initialize() before load_weights()")
+        loaded = self.trainer.load_checkpoint(checkpoint or None,
+                                              fallback=bool(checkpoint))
+        if not loaded:
+            if require:
+                raise ServingError(
+                    "no verifiable checkpoint to serve (refusing to serve "
+                    "fresh or unverified weights; pass require=False for "
+                    "smoke tests)")
+            print("WARNING: serving with fresh weights (require=False)")
+        self.refresh_weights()
+        return loaded
+
     def refresh_weights(self):
+        """Re-read the inference weights (the averaged copy with its
+        statistics when model averaging is on) from the trainer."""
         self._variables = self.trainer.inference_params()
         return self._variables
 

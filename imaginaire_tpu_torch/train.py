@@ -18,8 +18,12 @@ batch), ``data_wait`` (that plus ``start_of_iteration``: the host hook,
 pinning and the copies' launch) and the iteration's host time; ``main``
 returns the trainer.
 
+The validation loader goes to the trainer: at each ``snapshot_save_iter``
+checkpoint ``write_metrics`` computes FID over it (``evaluation/``).
+
 The JAX package's mesh, elastic pods, cluster coordination, chaos
-injection, preemption guard, telemetry and vid2vid's whole-rollout scan
+injection, preemption guard, telemetry, continuous evaluation
+(``evaluation.every_n_iter``) and vid2vid's whole-rollout scan
 (``trainer.rollout_scan``) are not in the port: a config that enables
 one of them raises. vid2vid's pipelined rollout (``trainer.pipeline``)
 runs as the sequential rollout, which the JAX package defines as
@@ -81,6 +85,7 @@ def refuse_unported_runtime(cfg):
             cfg_get(resilience, "emergency_checkpoint", False)),
         "chaos.enabled": bool(enabled("chaos")),
         "telemetry.enabled": bool(enabled("telemetry")),
+        "evaluation.every_n_iter": bool(enabled("evaluation", "every_n_iter")),
         "trainer.rollout_scan": bool(cfg_get(cfg_get(cfg, "trainer", None) or {},
                                              "rollout_scan", False)),
     }
@@ -111,10 +116,10 @@ def main(argv=None):
     os.makedirs(logdir, exist_ok=True)
     cfg.logdir = logdir
 
-    train_loader, _ = get_train_and_val_dataloader(cfg, seed=args.seed)
+    train_loader, val_loader = get_train_and_val_dataloader(cfg, seed=args.seed)
     trainer = resolve(cfg.trainer.type, "Trainer")(
         cfg, device=args.device, train=True, iters_per_epoch=len(train_loader),
-        train_data_loader=train_loader)
+        train_data_loader=train_loader, val_data_loader=val_loader)
     add_hparams(trainer.writer, {
         "trainer": str(cfg.trainer.type),
         "gen": str(cfg.gen.type),

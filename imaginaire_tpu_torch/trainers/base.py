@@ -36,15 +36,34 @@ The loop (``train.py``): ``start_of_epoch``, ``start_of_iteration`` (the
 loader's NHWC numpy to NCHW tensors on the device, through pinned host
 memory and non-blocking copies), ``end_of_iteration`` and
 ``end_of_epoch`` with the JAX package's ``logging_iter``,
-``snapshot_save_iter``, ``snapshot_save_epoch`` and ``image_save_iter``
-cadences, the losses' meters (``utils/meters.py``, written to
-``<logdir>/meters.jsonl``), checkpoints (``utils/checkpoint.py``) and
-``test``. A checkpoint holds everything the next step reads: G, D and the
-averaged copy with their buffers (spectral-norm ``u``, BatchNorm
-statistics), the loss networks' weights, both optimizers' moments and
-update counts (the lr schedules are functions of the count), the noise
-generators' states, the EMA's update count, and the loop's
-epoch, iteration and batch within the epoch.
+``snapshot_save_iter`` (a checkpoint, then ``write_metrics``),
+``snapshot_save_epoch`` and ``image_save_iter`` cadences, the losses'
+meters (``utils/meters.py``, written to ``<logdir>/meters.jsonl``),
+checkpoints (``utils/checkpoint.py``) and ``test``. A checkpoint holds
+everything the next step reads: G, D and the averaged copy with their
+buffers (spectral-norm ``u``, BatchNorm statistics), the loss networks'
+weights, both optimizers' moments and update counts (the lr schedules
+are functions of the count), the noise generators' states, the EMA's
+update count, and the loop's epoch, iteration and batch within the
+epoch; and, once they were estimated, the averaged copy's own BatchNorm
+statistics (an optional ``ema_bn/`` group: a checkpoint without it
+loads).
+
+The averaged copy's BatchNorm statistics
+(``recalculate_model_average_batch_norm_statistics``): the averaged
+weights never ran forward in training, so the live network's running
+statistics do not fit them. Before the averaged copy is used for the
+image snapshot's EMA column or FID_ema, the statistics are re-estimated
+as the cumulative mean of per-batch statistics over
+``trainer.model_average_batch_norm_estimation_iteration`` training
+batches, and ``inference_params`` hands them out with the averaged
+weights, as the JAX trainer does.
+
+Evaluation (``write_metrics``, ``compute_extra_metrics``): FID (and
+FID_ema), best_FID, KID and PRDC over the validation loader through the
+Inception-v3 extractor (``evaluation/``), into the meters. The family
+trainer supplies the sweeps (``_compute_fid``,
+``_extra_metric_activations``).
 """
 
 from __future__ import annotations
@@ -57,6 +76,7 @@ import numpy as np
 import torch
 
 from imaginaire_tpu_torch.config import as_attrdict, cfg_get
+from imaginaire_tpu_torch.layers.activation_norm import BatchNorm
 from imaginaire_tpu_torch.layers.state import (
     param_compute_dtype,
     state_buffers,
@@ -76,6 +96,7 @@ from imaginaire_tpu_torch.utils.visualization import (
 )
 
 NONFINITE_POLICIES = ("halt", "skip")
+EMA_BN_GROUP = "ema_bn/"
 
 
 class NonFiniteLossError(RuntimeError):
@@ -108,11 +129,14 @@ def _global_norm(tensors):
 
 class BaseTrainer:
     def __init__(self, cfg, device=None, train=False, iters_per_epoch=1,
-                 train_data_loader=None):
+                 train_data_loader=None, val_data_loader=None):
         self.cfg = cfg = as_attrdict(cfg)
         # the training loader, for families whose curriculum changes its
-        # dataset between epochs (vid2vid's sequence length)
+        # dataset between epochs (vid2vid's sequence length) and for the
+        # averaged copy's BatchNorm re-estimation; the validation loader
+        # for the metrics
         self.train_data_loader = train_data_loader
+        self.val_data_loader = val_data_loader
         self.device = resolve_device(device)
         with torch.device(self.device):
             self.net_G = resolve(cfg.gen.type, "Generator")(cfg.gen, cfg.data)
@@ -143,6 +167,13 @@ class BaseTrainer:
         logdir = cfg_get(cfg, "logdir", None)
         self.writer = ScalarWriter(logdir) if logdir else None
         self.meters = {}
+        # the averaged copy's re-estimated BatchNorm statistics ({buffer
+        # name: tensor}) and the iteration they were estimated at
+        self._ema_batch_stats = None
+        self._ema_bn_recal_iter = None
+        self.best_fid = None
+        self.fid_ema = None  # the last FID_ema (families with an averaged copy)
+        self._cached_fid_extractor = None
         if self.train:
             self._init_training(cfg, iters_per_epoch)
 
@@ -203,14 +234,98 @@ class BaseTrainer:
     def inference_params(self):
         """{name: tensor} for ``torch.func.functional_call(net_G, ...)``:
         the averaged parameters when model averaging is on, else the
-        live ones, plus the buffers (``u``, running statistics)."""
+        live ones, plus the buffers (``u``, running statistics); with
+        model averaging, the averaged copy's re-estimated BatchNorm
+        statistics in place of the live ones once they exist."""
         if self.state is None:
             raise RuntimeError("init_state() before inference_params()")
         params = dict(self.net_G.named_parameters())
         if self.model_average:
             params.update(self.ema_G)
         params.update(self.net_G.named_buffers())
+        if self.model_average and self._ema_batch_stats is not None:
+            params.update(self._ema_batch_stats)
         return params
+
+    def _batch_norms(self):
+        """(name, module) of G's BatchNorm layers."""
+        return [(name, m) for name, m in self.net_G.named_modules()
+                if isinstance(m, BatchNorm)]
+
+    @torch.no_grad()
+    def recalculate_model_average_batch_norm_statistics(self, data_loader=None,
+                                                        noise=None):
+        """Re-estimate the averaged copy's BatchNorm running statistics
+        (port of ``imaginaire_tpu/trainers/base.py:1433-1488``).
+
+        G runs in training mode on the averaged parameters (the live
+        spectral-norm ``u``, which it reads and keeps) over at most
+        ``trainer.model_average_batch_norm_estimation_iteration`` (30)
+        batches of ``data_loader`` (default: the training loader), each
+        prepared by the side-effect-free host hook; the statistics are
+        the cumulative mean of each layer's per-batch statistics. The
+        style code's eps of batch ``i`` is ``noise[i]`` when given, else
+        drawn from a generator seeded 1234. A no-op without model
+        averaging, a loader or a BatchNorm in G, and when it already ran
+        at ``current_iteration``.
+
+        The per-batch statistic is what the layer normalizes with (fp32
+        mean and biased variance), read from ``BatchNorm.record``. The
+        JAX trainer recovers the same quantity from flax's running
+        update, ``(new - 0.9 old) / 0.1``, which multiplies the update's
+        fp32 rounding by 10; the two agree within that rounding. The
+        live network's parameters, ``u`` and running statistics are not
+        written."""
+        if data_loader is None:
+            data_loader = self.train_data_loader
+        if not self.model_average or data_loader is None or self.ema_G is None:
+            return
+        if self._ema_bn_recal_iter == self.current_iteration:
+            return  # estimated this iteration already (FID and image snapshot)
+        n_iters = cfg_get(cfg_get(self.cfg, "trainer", None) or {},
+                          "model_average_batch_norm_estimation_iteration", 30)
+        norms = self._batch_norms()
+        if not n_iters or not norms:
+            return
+        params = dict(self.net_G.named_parameters())
+        params.update(self.ema_G)
+        params.update(self.net_G.named_buffers())
+        noises = iter(noise) if noise is not None else None
+        generator = torch.Generator(device=self.device).manual_seed(1234)
+        mean_stats, count = None, 0
+        was_training = self.net_G.training
+        self.net_G.train()
+        try:
+            with state_updates(self.net_G, False):
+                for it, data in enumerate(data_loader):
+                    if it >= n_iters:
+                        break
+                    data = self._eval_preprocess(data, self.current_iteration)
+                    eps = (next(noises) if noises is not None
+                           else self._draw_noise(data, generator))
+                    for _, m in norms:
+                        m.record = []
+                    self._generate(data, params, None, random_style=False, noise=eps)
+                    batch_stats = {}
+                    for name, m in norms:
+                        if len(m.record) != 1:
+                            raise RuntimeError(
+                                f"BatchNorm {name} ran {len(m.record)} times in one "
+                                "forward; the re-estimation takes one statistic a batch")
+                        batch_stats[f"{name}.mean"], batch_stats[f"{name}.var"] = m.record[0]
+                    count += 1
+                    if mean_stats is None:
+                        mean_stats = batch_stats
+                    else:
+                        mean_stats = {k: m + (batch_stats[k] - m) / count
+                                      for k, m in mean_stats.items()}
+        finally:
+            for _, m in norms:
+                m.record = None
+            self.net_G.train(was_training)
+        if mean_stats is not None:
+            self._ema_batch_stats = mean_stats
+            self._ema_bn_recal_iter = self.current_iteration
 
     def _get_outputs(self, net_D_output, real=True):
         """D's outputs for a target (differences of the real and fake
@@ -422,6 +537,7 @@ class BaseTrainer:
             self._flush_meters(current_iteration)
         if current_iteration % cfg_get(cfg, "snapshot_save_iter", 10000) == 0:
             self.save_checkpoint(current_epoch, current_iteration)
+            self.write_metrics()
         if current_iteration % cfg_get(cfg, "image_save_iter", 10000) == 0:
             self.save_image(self._image_path(current_iteration), data)
 
@@ -446,6 +562,110 @@ class BaseTrainer:
     def _get_visualizations(self, data):
         return None
 
+    def _eval_preprocess(self, data, current_iteration=-1):
+        """A host batch prepared for an eval forward without side
+        effects: the host hook, the copy to the device, the eval
+        forward's types (``_inference_data``)."""
+        return self._inference_data(self._to_device(
+            self._start_of_iteration(data, current_iteration)))
+
+    def _eval_loader(self, loader):
+        """``loader`` with each batch through ``_eval_preprocess``; it
+        can be iterated more than once."""
+        return _Mapped(loader, self._eval_preprocess)
+
+    # --------------------------------------------------------- evaluation
+
+    def _fid_extractor(self):
+        """The Inception-v3 extractor (cached); raises
+        ``FileNotFoundError`` without the converted weights unless
+        ``trainer.fid_random_init``."""
+        if self._cached_fid_extractor is None:
+            from imaginaire_tpu_torch.evaluation import inception
+
+            model = inception.load_params(
+                random_init=cfg_get(cfg_get(self.cfg, "trainer", {}) or {},
+                                    "fid_random_init", False),
+                device=self.device)
+            self._cached_fid_extractor = inception.make_extractor(model)
+        return self._cached_fid_extractor
+
+    def _compute_fid(self):
+        """FID of the family's generator (and FID_ema into its meter), or
+        None where the family has no sweep."""
+        return None
+
+    def _extra_metric_activations(self, extractor):
+        """(act_real, act_fake) Inception activations for KID and PRDC,
+        or None where the family has no sweep."""
+        return None
+
+    def _cached_real_activations(self, cache_name, compute):
+        """Real-set activations, cached in the logdir's ``cache_name``
+        ``.npz`` tagged with the feature graph's version (a cache of
+        another version is recomputed); a random-init extractor never
+        caches."""
+        from imaginaire_tpu_torch.evaluation.fid import FEATURE_GRAPH_VERSION
+
+        if cfg_get(cfg_get(self.cfg, "trainer", {}) or {}, "fid_random_init", False):
+            return compute()
+        path = os.path.join(cfg_get(self.cfg, "logdir", "."), cache_name)
+        if os.path.exists(path):
+            npz = np.load(path)
+            version = int(npz["graph_version"]) if "graph_version" in npz else 0
+            if version == FEATURE_GRAPH_VERSION:
+                return npz["acts"]
+        acts = compute()
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        np.savez(path, acts=acts, graph_version=FEATURE_GRAPH_VERSION)
+        return acts
+
+    def compute_extra_metrics(self, metrics):
+        """KID and PRDC -> {name: value}, written to the meters; one
+        (real, fake) sweep feeds both. Names other than kid and prdc are
+        reported and ignored."""
+        out = {}
+        metrics = {str(m).lower() for m in (metrics or ())}
+        unknown = metrics - {"kid", "prdc"}
+        if unknown:
+            print(f"Unknown extra metrics ignored: {sorted(unknown)}")
+        metrics &= {"kid", "prdc"}
+        if not metrics or self.val_data_loader is None:
+            return out
+        try:
+            extractor = self._fid_extractor()
+        except FileNotFoundError as e:
+            print(f"extra metrics skipped: {e}")
+            return out
+        acts = self._extra_metric_activations(extractor)
+        if acts is None:
+            return out
+        act_real, act_fake = acts
+
+        from imaginaire_tpu_torch.evaluation.kid import kid_from_activations
+        from imaginaire_tpu_torch.evaluation.prdc import prdc_from_activations
+
+        if "kid" in metrics:
+            out["KID"] = float(kid_from_activations(act_real, act_fake))
+        if "prdc" in metrics:
+            prdc = prdc_from_activations(act_real, act_fake)
+            out.update({f"PRDC_{k}": float(v) for k, v in prdc.items()})
+        for name, value in out.items():
+            self._meter(name).write(value)
+        self._flush_meters(self.current_iteration)
+        return out
+
+    def write_metrics(self):
+        """FID and the best FID so far, into the meters."""
+        fid = self._compute_fid()
+        if fid is not None:
+            if self.best_fid is None or fid < self.best_fid:
+                self.best_fid = fid
+            self._meter("FID").write(float(fid))
+            self._meter("best_FID").write(float(self.best_fid))
+            self._flush_meters(self.current_iteration)
+        return fid
+
     # ---------------------------------------------------------- checkpoints
 
     def _optimizers(self):
@@ -462,6 +682,8 @@ class BaseTrainer:
                 out.update({f"{prefix}/{k}": v for k, v in module.state_dict().items()})
         if self.ema_G is not None:
             out.update({f"ema_G/{k}": v for k, v in self.ema_G.items()})
+            if self._ema_batch_stats is not None:
+                out.update({EMA_BN_GROUP + k: v for k, v in self._ema_batch_stats.items()})
         if not self.train:
             return out
         if getattr(self, "perceptual", None) is not None:
@@ -484,7 +706,9 @@ class BaseTrainer:
         also the loss networks, the optimizers, the generators' states and
         the counters. Every tensor the trainer expects is matched first:
         one the checkpoint lacks, or holds in another shape, raises before
-        anything is copied."""
+        anything is copied. The averaged copy's BatchNorm statistics
+        (``ema_bn/``) are optional: without them the averaged copy runs on
+        the live statistics until they are re-estimated."""
         pairs = []
 
         def match(prefix, named):
@@ -498,8 +722,21 @@ class BaseTrainer:
         match("net_G", self.net_G.state_dict())
         if self.net_D is not None and any(k.startswith("net_D/") for k in state):
             match("net_D", self.net_D.state_dict())
+        ema_bn = None
         if self.ema_G is not None:
             match("ema_G", self.ema_G)
+            if any(k.startswith(EMA_BN_GROUP) for k in state):
+                buffers = dict(self.net_G.named_buffers())
+                names = [f"{n}.{b}" for n, _ in self._batch_norms() for b in ("mean", "var")]
+                ema_bn = {n: state.get(EMA_BN_GROUP + n) for n in names}
+                stray = [k for k in state if k.startswith(EMA_BN_GROUP)
+                         and k[len(EMA_BN_GROUP):] not in ema_bn]
+                bad = [n for n, t in ema_bn.items()
+                       if t is None or tuple(t.shape) != tuple(buffers[n].shape)]
+                if stray or bad:
+                    raise KeyError(f"checkpoint's {EMA_BN_GROUP} group does not fit G's "
+                                   f"BatchNorms: missing or misshapen {bad[:5]}, "
+                                   f"unknown {stray[:5]}")
         resume = resume and self.train
         if resume:
             if getattr(self, "perceptual", None) is not None:
@@ -515,6 +752,10 @@ class BaseTrainer:
                 raise KeyError(f"checkpoint has no {missing}")
         for dst, src in pairs:
             dst.copy_(src)
+        if self.ema_G is not None:
+            self._ema_batch_stats = (None if ema_bn is None else
+                                     {n: t.to(self.device).clone() for n, t in ema_bn.items()})
+            self._ema_bn_recal_iter = None
         if not resume:
             return
         for key, opt, _ in self._optimizers():
@@ -587,10 +828,13 @@ class BaseTrainer:
     def _inference_data(self, data):
         return data
 
-    def _generate(self, data, params, generator, random_style):
+    def _generate(self, data, params, generator, random_style, noise=None):
         """G's fake images for ``data`` under ``params`` (None: G's own
-        parameters and buffers), the noise drawn from ``generator``."""
+        parameters and buffers), the noise given or drawn from
+        ``generator``."""
         kwargs = {"random_style": random_style, "generator": generator}
+        if noise is not None:
+            kwargs["noise"] = noise
         if params is None:
             return self.net_G(data, **kwargs)["fake_images"]
         return torch.func.functional_call(self.net_G, params, (data,), kwargs)["fake_images"]
@@ -642,3 +886,13 @@ class BaseTrainer:
     def _flush_meters(self, step):
         for meter in self.meters.values():
             meter.flush(step)
+
+
+class _Mapped:
+    """An iterable of ``fn(batch)`` over ``loader``'s batches."""
+
+    def __init__(self, loader, fn):
+        self.loader, self.fn = loader, fn
+
+    def __iter__(self):
+        return (self.fn(batch) for batch in self.loader)

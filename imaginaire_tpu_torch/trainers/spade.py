@@ -9,10 +9,21 @@ weights. The G noise (the style encoder's VAE eps) of a step is drawn
 from the trainer's ``gen_rng`` / ``dis_rng`` generators, or injected.
 For the loop it folds 5-D batches into label channels
 (``_start_of_iteration``) and draws the image snapshots
-(``_get_visualizations``).
+(``_get_visualizations``, whose EMA column re-estimates the averaged
+copy's BatchNorm statistics first).
+
+Evaluation (``_compute_fid``, ``_extra_metric_activations``): the eval
+forward (``training=False``, the style code from the real image with the
+eps of a generator seeded 0) over the validation loader. FID runs on the
+live G and its live statistics; FID_ema re-estimates the averaged copy's
+statistics first and runs on ``inference_params()``; KID and PRDC take
+``inference_params()`` as they stand (no re-estimation), as in the JAX
+trainer.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -35,10 +46,11 @@ from imaginaire_tpu_torch.utils.data import (
 
 class Trainer(BaseTrainer):
     def __init__(self, cfg, device=None, train=False, iters_per_epoch=1,
-                 train_data_loader=None):
+                 train_data_loader=None, val_data_loader=None):
         super().__init__(cfg, device=device, train=train,
                          iters_per_epoch=iters_per_epoch,
-                         train_data_loader=train_data_loader)
+                         train_data_loader=train_data_loader,
+                         val_data_loader=val_data_loader)
         try:
             crop_h, crop_w = get_crop_or_resize_h_w(self.cfg.data.train.augmentations)
             self.base = {256: 16, 512: 32, 1024: 64}.get(min(crop_h, crop_w), 32)
@@ -173,6 +185,7 @@ class Trainer(BaseTrainer):
 
         vis = [data["images"][:, :3], data["label"][:, :1], fake(None)]
         if self.model_average:
+            self.recalculate_model_average_batch_norm_statistics()
             vis.append(fake(self.inference_params()))
         return [v.float().permute(0, 2, 3, 1).cpu().numpy() for v in vis]
 
@@ -189,3 +202,61 @@ class Trainer(BaseTrainer):
                 if (h2, w2) != (h, w):
                     out[key] = arr[:, :h2, :w2]
         return out
+
+    # ------------------------------------------------------------------ FID
+
+    def _eval_noise(self, data):
+        """The style code's eps of an eval forward: from a generator
+        seeded 0 (the JAX trainer's fixed key), the same for every batch."""
+        return self._draw_noise(data, torch.Generator(device=self.device).manual_seed(0))
+
+    def _make_eval_gen_fn(self, params):
+        """Prepared batch -> G's fake images under ``params`` (None: the
+        live network), the eval forward."""
+        @torch.no_grad()
+        def gen_fn(data):
+            return self._generate(data, params, None, random_style=False,
+                                  noise=self._eval_noise(data))
+        return gen_fn
+
+    def _extra_metric_activations(self, extractor):
+        """(real, fake) activations of the validation set for KID and
+        PRDC, the fakes from ``inference_params()``; the real ones cached
+        across a checkpoint sweep."""
+        from imaginaire_tpu_torch.evaluation.common import get_activations
+
+        gen_fn = self._make_eval_gen_fn(self.inference_params())
+        val_loader = self._eval_loader(self.val_data_loader)
+        act_fake = get_activations(val_loader, "images", "fake_images", extractor,
+                                   generator_fn=gen_fn)
+        data_name = cfg_get(cfg_get(self.cfg, "data", {}), "name", "data")
+        act_real = self._cached_real_activations(
+            f"real_acts_{data_name}.npz",
+            lambda: get_activations(val_loader, "images", "fake_images", extractor))
+        return act_real, act_fake
+
+    def _compute_fid(self):
+        """FID of the live G, and FID_ema (into its meter) of the averaged
+        copy after its statistics are re-estimated; the real statistics
+        cached in the logdir's ``real_stats_<data name>.npz``."""
+        if self.val_data_loader is None:
+            return None
+        from imaginaire_tpu_torch.evaluation.fid import compute_fid
+
+        try:
+            extractor = self._fid_extractor()
+        except FileNotFoundError as e:
+            print(f"FID skipped: {e}")
+            return None
+        logdir = cfg_get(self.cfg, "logdir", ".")
+        data_name = cfg_get(cfg_get(self.cfg, "data", {}), "name", "data")
+        fid_path = os.path.join(logdir, f"real_stats_{data_name}.npz")
+        val_loader = self._eval_loader(self.val_data_loader)
+        fid = compute_fid(fid_path, val_loader, extractor, self._make_eval_gen_fn(None))
+        if self.model_average:
+            self.recalculate_model_average_batch_norm_statistics()
+            fid_ema = compute_fid(fid_path, val_loader, extractor,
+                                  self._make_eval_gen_fn(self.inference_params()))
+            self.fid_ema = fid_ema
+            self._meter("FID_ema").write(float(fid_ema))
+        return fid

@@ -73,10 +73,11 @@ logger = logging.getLogger(__name__)
 
 class Trainer(BaseTrainer):
     def __init__(self, cfg, device=None, train=False, iters_per_epoch=1,
-                 train_data_loader=None):
+                 train_data_loader=None, val_data_loader=None):
         super().__init__(cfg, device=device, train=train,
                          iters_per_epoch=iters_per_epoch,
-                         train_data_loader=train_data_loader)
+                         train_data_loader=train_data_loader,
+                         val_data_loader=val_data_loader)
         cfg = self.cfg
         self.num_frames_G = cfg_get(cfg.data, "num_frames_G", 3)
         self.num_frames_D = cfg_get(cfg.data, "num_frames_D", 3)

@@ -28,7 +28,10 @@ within ~2^-22 of each fp32 product), bf16 1e-2 of the output's magnitude
 (both round once, at the end; the rounding of an fp32 difference can
 cross a bf16 step). The correlation kernel's build is also read: ptxas
 reports no spills, and its SASS carries tensor-core (HMMA) and cp.async
-(LDGSTS) instructions.
+(LDGSTS) instructions. Evaluation: Inception-v3 on the card against its
+CPU run (1e-3 of the features' magnitude), and the averaged copy's
+BatchNorm re-estimation through the modulation kernel against the plain
+composition (1e-4).
 """
 
 import re
@@ -600,3 +603,69 @@ def test_correlation_kernel_uses_tensor_cores_and_cp_async(cuda_device):
     sass = subprocess.run([tool, "-sass", str(_correlation_library())],
                           capture_output=True, text=True, check=True).stdout
     assert "HMMA" in sass and "LDGSTS" in sass
+
+
+# ------------------------------------------------------------ evaluation
+
+UNIT_CONFIG = Path(__file__).resolve().parent.parent / "configs/unit_test/spade.yaml"
+
+
+@pytest.mark.cuda
+def test_inception_on_the_card_matches_the_cpu(cuda_device):
+    """The extractor (bf16-rounded input, fp32 network, TF32 off) on the
+    card against the port's CPU run of the same seeded weights: max-abs
+    over the features' max magnitude 1e-3 (cuDNN's and the CPU's fp32
+    convolutions sum in other orders through ~50 layers)."""
+    from imaginaire_tpu_torch.evaluation import inception
+
+    x = torch.randn((2, 3, 299, 299), generator=torch.Generator().manual_seed(0))
+    got = inception.make_extractor(inception.load_params(
+        random_init=True, device="cuda", seed=1))(x.cuda()).cpu()
+    want = inception.make_extractor(inception.load_params(random_init=True, seed=1))(x)
+    assert got.shape == (2, 2048) and torch.isfinite(got).all()
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_ema_bn_reestimation_through_the_kernel_matches_plain(cuda_device):
+    """The averaged copy's BatchNorm re-estimation on the unit config
+    (small widths, the style code's norms ``sync_batch``, the SPADE
+    blocks' instance norm through the modulation kernel) against the same
+    run through the plain composition: each statistic within 1e-4 of the
+    larger of its own and the live statistic's max magnitude; the live
+    network bit for bit."""
+    import numpy as np
+
+    from imaginaire_tpu_torch.config import Config
+    from imaginaire_tpu_torch.trainers.spade import Trainer
+
+    cfg = Config(str(UNIT_CONFIG), overrides={
+        "gen": {"num_filters": 8, "style_dims": 16, "style_enc": {"num_filters": 4},
+                "activation_norm_params": {"num_filters": 8},
+                "global_adaptive_norm_type": "sync_batch"},
+        "trainer": {"model_average": True,
+                    "model_average_batch_norm_estimation_iteration": 2}})
+    trainer = Trainer(cfg, device="cuda")
+    trainer.init_state(seed=0)
+    rng = np.random.RandomState(0)
+    loader = [{"label": np.eye(14, dtype=np.float32)[rng.randint(0, 14, (2, 32, 32))],
+               "images": rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)}
+              for _ in range(3)]
+    live = {k: v.clone() for k, v in trainer.net_G.state_dict().items()}
+    runs = {}
+    for route, value in (("kernel", "auto"), ("plain", "none")):
+        for m in trainer.net_G.modules():
+            if isinstance(m, SpatiallyAdaptiveNorm):
+                m.fused_modulation = value
+        trainer._ema_bn_recal_iter = None
+        before = spade_mod.launches
+        trainer.recalculate_model_average_batch_norm_statistics(loader)
+        runs[route] = (spade_mod.launches - before, trainer._ema_batch_stats)
+    (launches, kernel), (plain_launches, plain) = runs["kernel"], runs["plain"]
+    assert launches > 0 and launches % 2 == 0 and plain_launches == 0
+    buffers = dict(trainer.net_G.named_buffers())
+    assert len(kernel) == 8
+    for name, value in kernel.items():
+        scale = max(float(plain[name].abs().max()), float(buffers[name].abs().max()))
+        assert float((value - plain[name]).abs().max()) <= 1e-4 * scale, name
+    assert all(torch.equal(v, live[k]) for k, v in trainer.net_G.state_dict().items())
