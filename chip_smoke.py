@@ -127,7 +127,28 @@ Phases, one line each; any failure exits non-zero:
    weights and statistics bit for bit (and raises on an empty logdir).
    The sweeps' seconds, the re-estimation's seconds and batches and peak
    memory are printed;
-11. a ``kernels`` JSON line, the nvidia-smi line, and the final JSON line.
+11. vid2vid inference and evaluation from disk (``vid2vid_eval_entry``,
+   run right after phase 9 on its packed sequences and checkpoint, before
+   phase 10): the config with phase 9's overrides,
+   ``trainer.fid_random_init``, ``num_videos_to_test: 2`` and a test split
+   on the sequences (512x1024). ``imaginaire_tpu_torch.inference.main``
+   writes every frame of every sequence (finite, in [-1, 1]; resample2d
+   once a frame from the third on), and the first sequence equals the
+   serving engine's stream of the same checkpoint bit for bit; two
+   ``imaginaire_tpu_torch.evaluate.main`` sweeps (``--metrics
+   fid,kid,prdc``) give finite video FID, KID and PRDC, the second equal
+   to the first, with resample2d's launches predicted. The teacher
+   cache's dataset half, on the config with ``flow_cache`` in disk mode
+   and ``random_scale_limit`` and ``horizontal_flip`` dropped (the
+   committed config is refused, exit code 2): ``precompute_flow`` runs
+   twice (every pair computed in the predicted teacher forwards, then
+   all hits and no teacher launch), and one training iteration from the
+   disk cache attaches every pair (hit rate 1.0, no teacher launch), its
+   ``flow_gt`` within the float16 store's tolerance of the teacher run
+   on the same frames in producer mode. Seconds by part (load, rollout,
+   PNG, Inception, ``sqrtm``), rollout frames/s, launches, peak memory
+   and the card are printed;
+12. a ``kernels`` JSON line, the nvidia-smi line, and the final JSON line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -135,7 +156,9 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
+import io
 import json
 import os
 import re
@@ -417,6 +440,42 @@ V2V_ENTRY_OVERRIDES = {"logging_iter": 1, "snapshot_save_iter": 1000,
 # same step through their plain versions: each loss and the grad norm,
 # relative
 TOL_V2V_STEP_REL = 1e-3
+
+# vid2vid inference and evaluation from disk (phase 11): phase 9's packed
+# sequences and checkpoint (4 sequences of 6 frames; 540x1080 frames
+# resized to 512x1024 by the validation and test splits), the config with
+# phase 9's overrides, ``trainer.fid_random_init`` (no Inception-v3
+# weights in the repository), ``num_videos_to_test: 2`` and a test split on
+# the packed sequences. A rollout warps every frame from the third on:
+# inference rolls out every sequence, a sweep the first two twice (for FID,
+# then for KID and PRDC; the real frames run no generator)
+V2V_EVAL_VIDEOS = 2
+V2V_EVAL_OVERRIDES = {"trainer": {"fid_random_init": True,
+                                  "num_videos_to_test": V2V_EVAL_VIDEOS}}
+V2V_EVAL_METRICS = ("FID", "best_FID", "KID", "PRDC_precision", "PRDC_recall",
+                    "PRDC_density", "PRDC_coverage")
+V2V_WARPS_PER_SEQUENCE = max(0, V2V_ENTRY_FRAMES - 2)
+V2V_INFERENCE_RESAMPLE = V2V_ENTRY_SEQUENCES * V2V_WARPS_PER_SEQUENCE
+V2V_SWEEP_RESAMPLE = 2 * V2V_EVAL_VIDEOS * V2V_WARPS_PER_SEQUENCE
+# precompute_flow over the training split: 5 frame pairs a sequence, one
+# teacher forward a sequence (a chunk holds 8 pairs), each forward 1
+# correlation, 6 channelnorms and 5 warps
+V2V_PRECOMPUTE_CHUNK = 8
+V2V_PRECOMPUTE_PAIRS = V2V_ENTRY_SEQUENCES * (V2V_ENTRY_FRAMES - 1)
+V2V_PRECOMPUTE_FORWARDS = V2V_ENTRY_SEQUENCES * -(-(V2V_ENTRY_FRAMES - 1)
+                                                  // V2V_PRECOMPUTE_CHUNK)
+# one training iteration from disk with every pair cached: the generator's
+# warp alone (D and G step of each warp frame) and its backward
+V2V_DISK_LAUNCHES = {"resample2d": 2 * V2V_ENTRY_WARP_FRAMES,
+                     "resample2d_bwd": V2V_ENTRY_WARP_FRAMES,
+                     "correlation": 0, "channelnorm": 0}
+# the disk iteration's flow_gt against the teacher run on the same frames
+# in producer mode: the store keeps flow in float16 (the CPU tests' store
+# tolerance, |a - b| <= atol + rtol |b|); conf is stored exactly, and the
+# two teacher runs (5 pairs a forward, then 6) may round a pixel's warp
+# error to the other side of the threshold: at most this share of pixels
+TOL_STORE_RTOL, TOL_STORE_ATOL = 1e-3, 1e-2
+TOL_CONF_MISMATCH = 1e-4
 
 
 def phase(label, **fields):
@@ -1770,9 +1829,10 @@ def write_video_dataset(root, sequences=V2V_ENTRY_SEQUENCES,
     return build_packed_dataset(str(raw), str(root / "packed"), ["images", "seg_maps"])
 
 
-def video_entry_config(root, packed, overrides=None):
+def video_entry_config(root, packed, overrides=None, name="config.yaml", edit=None):
     """The Cityscapes config, its splits pointed at the packed dataset,
-    the weights overrides, short cadences and ``speed_benchmark``."""
+    the weights overrides, short cadences and ``speed_benchmark``, then
+    ``overrides`` and ``edit(cfg)``, written to ``root / name``."""
     import yaml
 
     from imaginaire_tpu_torch.config import load_yaml, recursive_update
@@ -1782,7 +1842,9 @@ def video_entry_config(root, packed, overrides=None):
         cfg["data"][split]["roots"] = [packed]
     recursive_update(cfg, V2V_ENTRY_OVERRIDES)
     recursive_update(cfg, overrides or {})
-    path = root / "config.yaml"
+    if edit is not None:
+        edit(cfg)
+    path = root / name
     path.write_text(yaml.safe_dump(cfg))
     return path
 
@@ -1822,11 +1884,13 @@ def reset_video_launches(rs, corr, cn):
 
 
 def vid2vid_train_entry(rs, corr, cn, device="cuda", overrides=None,
-                        hw=V2V_ENTRY_HW, iterations=V2V_ENTRY_ITERATIONS):
+                        hw=V2V_ENTRY_HW, iterations=V2V_ENTRY_ITERATIONS, workdir=None):
     """Phase 9: ``python -m imaginaire_tpu_torch.train`` in-process on a
     seeded packed video dataset, the Cityscapes config at 512x1024, batch
     2, sequence length 4, bf16: the per-frame D-then-G rollout through
-    resample2d (forward and backward), correlation and channelnorm."""
+    resample2d (forward and backward), correlation and channelnorm. With
+    ``workdir`` the dataset (``packed/``), the config and the logdir
+    (``log/``, its checkpoint) stay there for phase 11."""
     from imaginaire_tpu_torch import train
     from imaginaire_tpu_torch.resilience.integrity import verify_files
     from imaginaire_tpu_torch.trainers.vid2vid import Trainer
@@ -1836,7 +1900,8 @@ def vid2vid_train_entry(rs, corr, cn, device="cuda", overrides=None,
     cuda = device == "cuda"
     torch.backends.cudnn.allow_tf32 = True  # training runs the defaults
     torch.backends.cuda.matmul.allow_tf32 = False
-    with tempfile.TemporaryDirectory(prefix="vid2vid_train_entry_") as tmp:
+    with (contextlib.nullcontext(str(workdir)) if workdir is not None
+          else tempfile.TemporaryDirectory(prefix="vid2vid_train_entry_")) as tmp:
         tmp = Path(tmp)
         t0 = time.perf_counter()
         packed = write_video_dataset(tmp, hw=hw)
@@ -1992,6 +2057,322 @@ def vid2vid_train_entry(rs, corr, cn, device="cuda", overrides=None,
     if isinstance(breakdown, dict):
         phase("vid2vid_train_profile", **{k: breakdown[k] for k in (
             "wall_ms", "profiled_wall_ms", "device_ms", "idle_share", "families_ms")})
+    return row
+
+
+class PartClock:
+    """Seconds spent inside named callables, patched for the ``with``
+    block ({name: (owner, attribute)}), each call synchronized with the
+    card at both ends; ``wrap(name, fn)`` times another callable."""
+
+    def __init__(self, parts, cuda):
+        self.parts, self.cuda = parts, cuda
+        self.seconds = dict.fromkeys(parts, 0.0)
+        self.calls = dict.fromkeys(parts, 0)
+
+    def wrap(self, name, fn):
+        self.seconds.setdefault(name, 0.0)
+        self.calls.setdefault(name, 0)
+
+        def timed(*a, **k):
+            if self.cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                if self.cuda:
+                    torch.cuda.synchronize()
+                self.seconds[name] += time.perf_counter() - t0
+                self.calls[name] += 1
+        return timed
+
+    def __enter__(self):
+        self._saved = [(owner, attr, getattr(owner, attr))
+                       for owner, attr in self.parts.values()]
+        for name, (owner, attr) in self.parts.items():
+            setattr(owner, attr, self.wrap(name, getattr(owner, attr)))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in self._saved:
+            setattr(owner, attr, fn)
+
+    def take(self):
+        """{name: seconds} and {name: calls} since the last take."""
+        out = dict(self.seconds), dict(self.calls)
+        self.seconds = dict.fromkeys(self.seconds, 0.0)
+        self.calls = dict.fromkeys(self.calls, 0)
+        return out
+
+
+def last_json_line(fn, *args):
+    """(return value, the last line fn printed, parsed as JSON)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(*args)
+    print(buf.getvalue(), end="")
+    return rc, json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def vid2vid_eval_entry(rs, corr, cn, workdir, device="cuda", overrides=None):
+    """Phase 11: vid2vid inference and video evaluation from disk through
+    the port's entries, in-process, on phase 9's packed sequences and
+    checkpoint (``workdir``), at 512x1024; then the teacher cache's dataset
+    half: ``precompute_flow`` twice and one training iteration from the
+    disk cache."""
+    from scipy import linalg
+
+    from imaginaire_tpu_torch import evaluate, inference, precompute_flow
+    from imaginaire_tpu_torch.config import Config, recursive_update
+    from imaginaire_tpu_torch.data import get_train_and_val_dataloader
+    from imaginaire_tpu_torch.data.paired_videos import Dataset
+    from imaginaire_tpu_torch.evaluation import inception
+    from imaginaire_tpu_torch.flow.cache import TeacherFlowCache, flow_cache_settings
+    from imaginaire_tpu_torch.serving.engine import ServingEngine
+    from imaginaire_tpu_torch.trainers.vid2vid import Trainer
+    from imaginaire_tpu_torch.utils import checkpoint as ckpt_lib
+    from imaginaire_tpu_torch.utils.meters import ScalarWriter
+    from imaginaire_tpu_torch.utils.misc import nchw_to_nhwc
+
+    cuda = device == "cuda"
+    torch.backends.cudnn.allow_tf32 = True  # G runs the defaults; Inception pins fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    tmp = Path(workdir)
+    packed = str(tmp / "packed")
+    checkpoint = ckpt_lib.latest_checkpoint_path(str(tmp / "log"))
+
+    def add_test_split(cfg):
+        cfg["test_data"] = {
+            "name": cfg["data"]["name"], "type": cfg["data"]["type"],
+            "num_workers": cfg["data"]["num_workers"],
+            "input_types": copy.deepcopy(cfg["data"]["input_types"]),
+            "input_image": list(cfg["data"]["input_image"]),
+            "input_labels": list(cfg["data"]["input_labels"]),
+            "test": dict(copy.deepcopy(cfg["data"]["val"]), roots=[packed])}
+
+    eval_overrides = copy.deepcopy(V2V_EVAL_OVERRIDES)
+    recursive_update(eval_overrides, overrides or {})
+    cfg_path = video_entry_config(tmp, packed, eval_overrides, name="eval.yaml",
+                                  edit=add_test_split)
+    clock = PartClock({"load": (Trainer, "load_checkpoint"),
+                       "rollout": (Trainer, "_generate_frame"),
+                       "png": (Trainer, "_save_test_frame"),
+                       "sqrtm": (linalg, "sqrtm")}, cuda)
+    make_extractor = inception.make_extractor
+    inception.make_extractor = lambda model: clock.wrap("inception", make_extractor(model))
+    try:
+        with clock:
+            # 1. inference: every frame of every sequence, through the entry
+            frames, save = {}, Trainer._save_test_frame
+
+            def keep(self, output_dir, key, t, fake):
+                frames[(key, t)] = (fake.float().min().item(), fake.float().max().item(),
+                                    bool(torch.isfinite(fake).all()))
+                if key == "seq0000":
+                    frames[("first", t)] = nchw_to_nhwc(fake).cpu().numpy()
+                return save(self, output_dir, key, t, fake)
+
+            Trainer._save_test_frame = keep
+            out = tmp / "frames"
+            reset_video_launches(rs, corr, cn)
+            t0 = time.perf_counter()
+            try:
+                trainer = inference.main([
+                    "--config", str(cfg_path), "--checkpoint", checkpoint,
+                    "--output_dir", str(out), "--logdir", str(tmp / "inference"),
+                    "--seed", str(ENTRY_SEED), "--device", device])
+            finally:
+                Trainer._save_test_frame = save
+            inference_s = time.perf_counter() - t0
+            inference_launches = video_launches(rs, corr, cn)
+            inference_parts, inference_calls = clock.take()
+            written = sorted(str(p.relative_to(out)) for p in out.rglob("*.png"))
+            want_files = [f"seq{s_:04d}/{t:04d}.png" for s_ in range(V2V_ENTRY_SEQUENCES)
+                          for t in range(V2V_ENTRY_FRAMES)]
+            stats = [frames[(f"seq{s_:04d}", t)] for s_ in range(V2V_ENTRY_SEQUENCES)
+                     for t in range(V2V_ENTRY_FRAMES)]
+            if written != want_files or not all(ok and -1 <= lo and hi <= 1
+                                                for lo, hi, ok in stats) \
+                    or inference_launches != {"resample2d": V2V_INFERENCE_RESAMPLE,
+                                              "resample2d_bwd": 0, "correlation": 0,
+                                              "channelnorm": 0}:
+                raise AssertionError(f"inference: {len(written)} frames written of "
+                                     f"{len(want_files)}, ranges {stats}, launches "
+                                     f"{inference_launches}")
+
+            # the first sequence again, streamed by the serving engine from
+            # the same checkpoint (the same fp32 forwards: bit for bit)
+            engine = ServingEngine(trainer.cfg, trainer=trainer).initialize()
+            engine.load_weights(checkpoint)
+            clock.take()
+            test_set = Dataset(trainer.cfg, is_inference=True, is_test=True)
+            test_set.set_inference_sequence_idx(0)
+            stream = engine.stream(0)
+            stream_diff = [float(np.abs(stream.step({"label": test_set[t]["label"]})
+                                        - frames[("first", t)]).max())
+                           for t in range(V2V_ENTRY_FRAMES)]
+            if any(stream_diff):
+                raise AssertionError(f"inference vs the engine's stream: {stream_diff}")
+            del engine, trainer, stream, frames
+            if cuda:
+                torch.cuda.empty_cache()
+
+            # 2. two evaluation sweeps of the checkpoint
+            sweeps, sweep_s, sweep_launches, sweep_parts = [], [], [], []
+            for i in range(2):
+                reset_video_launches(rs, corr, cn)
+                t0 = time.perf_counter()
+                sweeps.append(evaluate.main([
+                    "--config", str(cfg_path), "--checkpoint", checkpoint,
+                    "--metrics", "fid,kid,prdc", "--logdir", str(tmp / f"eval{i}"),
+                    "--seed", str(ENTRY_SEED), "--device", device]))
+                sweep_s.append(time.perf_counter() - t0)
+                sweep_launches.append(video_launches(rs, corr, cn))
+                sweep_parts.append(clock.take())
+                if cuda:
+                    torch.cuda.empty_cache()
+        want = {"resample2d": V2V_SWEEP_RESAMPLE, "resample2d_bwd": 0, "correlation": 0,
+                "channelnorm": 0}
+        rows = [s_[0] for s_ in sweeps]
+        recorded = {r["name"] for r in ScalarWriter(str(tmp / "eval0")).read()
+                    if r["kind"] == "counter"}
+        bad = [k for k in V2V_EVAL_METRICS if not np.isfinite(rows[0].get(k, np.nan))]
+        if [len(s_) for s_ in sweeps] != [1, 1] or sweep_launches != [want, want] \
+                or bad or "FID_ema" in rows[0] or not set(V2V_EVAL_METRICS) <= recorded:
+            raise AssertionError(f"sweeps: {rows}, launches {sweep_launches} (expected "
+                                 f"{want} each), non-finite {bad}, in meters.jsonl "
+                                 f"{sorted(recorded)}")
+        n_frames = V2V_EVAL_VIDEOS * V2V_ENTRY_FRAMES
+        sweep_diff = {}
+        for k in V2V_EVAL_METRICS:
+            a, b = rows[0][k], rows[1][k]
+            sweep_diff[k] = abs(a - b) if k.startswith("PRDC") else abs(a - b) / max(abs(a), 1e-30)
+        over = [k for k, d in sweep_diff.items()
+                if d > (1.0 / n_frames if k.startswith("PRDC") else TOL_SWEEP_REL)]
+        if over:
+            raise AssertionError(f"two sweeps of one checkpoint differ: {over}: {rows}")
+    finally:
+        inception.make_extractor = make_extractor
+
+    # 3. the teacher cache's dataset half. The committed config draws a
+    # random scale per item: precompute_flow refuses it
+    def flow_cache_config(name, keep_scale):
+        def edit(cfg):
+            cfg["flow_cache"] = {"enabled": True, "mode": "disk",
+                                 "dir": str(tmp / "flow_cache")}
+            aug = cfg["data"]["train"]["augmentations"]
+            if not keep_scale:
+                # no canonical resolution under a random scale; and the
+                # disk path mirrors a flipped item's cached flow where the
+                # producer runs the teacher on the flipped frames, which a
+                # random-init teacher does not map to the mirrored flow
+                del aug["random_scale_limit"], aug["horizontal_flip"]
+        return video_entry_config(tmp, packed, overrides, name=name, edit=edit)
+
+    refused = precompute_flow.main(["--config", str(flow_cache_config("scale.yaml", True)),
+                                    "--device", device])
+    pre_path = flow_cache_config("precompute.yaml", False)
+    torch.backends.cudnn.allow_tf32 = False  # the teacher's two runs compared below
+    pre_args = ["--config", str(pre_path), "--chunk", str(V2V_PRECOMPUTE_CHUNK), "--json",
+                "--device", device]
+    precompute, pre_launches, pre_s = [], [], []
+    for _ in range(2):
+        reset_video_launches(rs, corr, cn)
+        t0 = time.perf_counter()
+        rc, summary = last_json_line(precompute_flow.main, pre_args)
+        pre_s.append(time.perf_counter() - t0)
+        pre_launches.append(video_launches(rs, corr, cn))
+        precompute.append(dict(summary, rc=rc))
+    n = V2V_PRECOMPUTE_FORWARDS
+    want_pre = [{"resample2d": 5 * n, "resample2d_bwd": 0, "correlation": n,
+                 "channelnorm": 6 * n}, dict.fromkeys(pre_launches[0], 0)]
+    if refused != 2 or [p_["rc"] for p_ in precompute] != [0, 0] \
+            or [(p_["pairs"], p_["hits"]) for p_ in precompute] != [
+                (V2V_PRECOMPUTE_PAIRS, 0), (V2V_PRECOMPUTE_PAIRS, V2V_PRECOMPUTE_PAIRS)] \
+            or precompute[1]["hit_rate"] != 1.0 or pre_launches != want_pre:
+        raise AssertionError(f"precompute_flow: refused rc {refused}, runs {precompute}, "
+                             f"launches {pre_launches} (expected {want_pre})")
+
+    # one training iteration from the disk cache, and the teacher on the
+    # same frames in producer mode
+    cfg = Config(str(pre_path))
+    cfg.logdir = str(tmp / "disk_train")
+    loader, _ = get_train_and_val_dataloader(cfg, seed=ENTRY_SEED)
+    trainer = Trainer(cfg, device=device, train=True, iters_per_epoch=len(loader),
+                      train_data_loader=loader)
+    trainer.init_state(seed=ENTRY_SEED)
+    loader.set_epoch(0)
+    trainer.start_of_epoch(0)
+    batch = next(iter(loader))
+    reset_video_launches(rs, corr, cn)
+    t0 = time.perf_counter()
+    data = trainer.start_of_iteration(batch, 0)
+    trainer.gen_update(data)
+    if cuda:
+        torch.cuda.synchronize()
+    disk_s = time.perf_counter() - t0
+    disk_launches = video_launches(rs, corr, cn)
+    hit_rate = trainer.flow_cache.drain_stats().get("flow_cache/hit_rate")
+    reset_video_launches(rs, corr, cn)
+    producer = TeacherFlowCache(trainer.flow_net_wrapper, flow_cache_settings(
+        {"flow_cache": {"enabled": True, "mode": "producer"}}))
+    ref = producer.attach({"images": data["images"]})
+    producer_launches = video_launches(rs, corr, cn)
+    torch.backends.cudnn.allow_tf32 = True
+    flow, flow_ref = data["flow_gt"].float(), ref["flow_gt"].float()
+    excess = ((flow - flow_ref).abs() - TOL_STORE_ATOL - TOL_STORE_RTOL * flow_ref.abs())
+    flow_err = float((flow - flow_ref).abs().max())
+    conf_mismatch = float((data["conf_gt"] != ref["conf_gt"]).float().mean())
+    pairs = V2V_ENTRY_BATCH * (V2V_ENTRY_SEQ - 1)
+    if disk_launches != V2V_DISK_LAUNCHES or hit_rate != [1.0] \
+            or tuple(flow.shape) != (V2V_ENTRY_BATCH, V2V_ENTRY_SEQ - 1, 2) + V2V_HW \
+            or float(excess.max()) > 0 or conf_mismatch > TOL_CONF_MISMATCH \
+            or producer_launches != {"resample2d": 5, "resample2d_bwd": 0,
+                                     "correlation": 1, "channelnorm": 6}:
+        raise AssertionError(
+            f"disk-mode iteration: launches {disk_launches} (expected {V2V_DISK_LAUNCHES}), "
+            f"hit rate {hit_rate}, flow_gt {tuple(flow.shape)} off the producer's by "
+            f"{flow_err} (float16 store: rtol {TOL_STORE_RTOL}, atol {TOL_STORE_ATOL}), "
+            f"conf mismatch share {conf_mismatch}, producer launches {producer_launches}")
+    del trainer, data, batch, producer, ref, flow, flow_ref, excess
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else "not measured"
+    if cuda:
+        torch.cuda.empty_cache()
+
+    def parts(taken):
+        seconds, calls = taken
+        return {"seconds": seconds, "calls": calls}
+
+    counted = [inference_launches, *sweep_launches, *pre_launches, disk_launches,
+               producer_launches]
+    total = {k: sum(c[k] for c in counted) for k in counted[0]}
+
+    rollout_frames = inference_calls["rollout"]
+    row = {
+        "hw": list(V2V_HW), "sequences": V2V_ENTRY_SEQUENCES, "frames": V2V_ENTRY_FRAMES,
+        "checkpoint": Path(checkpoint).name,
+        "inference_s": inference_s, "inference_parts": parts((inference_parts,
+                                                              inference_calls)),
+        "rollout_frames_per_s": rollout_frames / inference_parts["rollout"],
+        "inference_launches": inference_launches, "frames_written": len(written),
+        "stream_max_abs_diff": stream_diff,
+        "sweep_s": sweep_s, "sweep_parts": [parts(p_) for p_ in sweep_parts],
+        "sweep_rollout_frames_per_s": [p_[1]["rollout"] / p_[0]["rollout"]
+                                       for p_ in sweep_parts],
+        "sweep_launches": sweep_launches, "metrics": rows[0],
+        "second_sweep_diff": sweep_diff, "precompute_refused_rc": refused,
+        "precompute": precompute, "precompute_s": pre_s,
+        "precompute_launches": pre_launches, "disk_iteration_s": disk_s,
+        "disk_launches": disk_launches, "disk_hit_rate": hit_rate[0],
+        "disk_pairs": pairs, "flow_gt_max_abs_diff": flow_err,
+        "conf_mismatch_share": conf_mismatch, "producer_launches": producer_launches,
+        "launches": total, "peak_mem_gib": peak, "phase_s": time.perf_counter() - t_phase,
+        "nvidia_smi": nvidia_smi() if cuda else "not measured"}
+    phase("vid2vid_eval_entry", **row)
     return row
 
 
@@ -2496,7 +2877,9 @@ def main():
     teacher = teacher_path(corr, cn, rs)
     train = spade_train_path(spade_mod)
     entry = spade_train_entry(spade_mod)
-    v2v_train = vid2vid_train_entry(rs, corr, cn)
+    with tempfile.TemporaryDirectory(prefix="vid2vid_entry_") as v2v_dir:
+        v2v_train = vid2vid_train_entry(rs, corr, cn, workdir=v2v_dir)
+        v2v_eval = vid2vid_eval_entry(rs, corr, cn, v2v_dir)
     evaluation = spade_eval_entry(spade_mod)
 
     def per_call_set(table, dtype):
@@ -2528,6 +2911,9 @@ def main():
         "source": "imaginaire_tpu_torch/csrc/resample2d.cu",
         "replaces": "imaginaire_tpu/ops/pallas/resample2d_kernel.py:87",
         "launches": v2v["launches"], "max_abs_err": rs_err,
+        # launches on the vid2vid inference, evaluation and flow-cache paths
+        # (phase 11), counted beside the main path's
+        "eval_entry_launches": v2v_eval["launches"]["resample2d"],
         # one warp of the previous (1, 3, 512, 1024) frame, fp32, mixed flow
         **{key: rs_rows[0][key] for key in
            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}, {
@@ -2546,6 +2932,7 @@ def main():
         "source": "imaginaire_tpu_torch/csrc/correlation.cu",
         "replaces": "imaginaire_tpu/ops/pallas/correlation_kernel.py:76",
         "launches": teacher["launches"]["correlation"], "max_abs_err": corr_err,
+        "eval_entry_launches": v2v_eval["launches"]["correlation"],
         # the one call of a FlowNet2 forward of one frame pair, fp32
         **{key: corr_rows[0][key] for key in
            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}, {
@@ -2553,6 +2940,7 @@ def main():
         "source": "imaginaire_tpu_torch/csrc/channelnorm.cu",
         "replaces": "imaginaire_tpu/ops/pallas/channelnorm_kernel.py:32",
         "launches": teacher["launches"]["channelnorm"], "max_abs_err": cn_err,
+        "eval_entry_launches": v2v_eval["launches"]["channelnorm"],
         # the 6 calls (4 of 3 channels, 2 of 2) of a FlowNet2 forward of
         # one frame pair, fp32
         **{key: sum(r[key] * r["calls"] for r in cn_per_pair)
@@ -2567,7 +2955,8 @@ def main():
              "main_path": main, "vid2vid_path": v2v, "teacher_path": teacher,
              "modulation_bwd": bwd_rows, "spade_train_path": train,
              "spade_train_entry": entry, "resample2d_bwd": rs_bwd_rows,
-             "vid2vid_train_entry": v2v_train, "spade_eval_entry": evaluation,
+             "vid2vid_train_entry": v2v_train, "vid2vid_eval_entry": v2v_eval,
+             "spade_eval_entry": evaluation,
              "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -19,9 +19,19 @@ numpy because the GPU machine has no OpenCV: ``dsize`` is (w, h);
 uint8 uses half-pixel centres, 11-bit fixed-point weights and OpenCV's
 vectorized rounding of the vertical pass, and an exact halving averages
 2x2 blocks as OpenCV does.
+
+The teacher flow cache reads two things of each call, kept per thread
+(the loader's threads share one augmentor): ``last_record``, the call's
+spatial draw (``canonical_hw``, ``crop``, ``hflip``, ``canonical_ok``),
+and ``last_canonical``, the frames of the ``capture_canonical_types``
+at the canonical resolution: after the leading resizes, before the
+first op that is not one. ``canonical_ok`` holds when what follows is
+crops and flips only, which the cache replays on a cached flow.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 
@@ -36,7 +46,10 @@ def _parse_hw(value):
 
 def deterministic_resize_chain(aug_cfg, hw):
     """The resize ops a sample of original size ``hw`` always receives
-    from ``aug_cfg``: (ops, (h, w))."""
+    from ``aug_cfg``: (ops, (h, w), deterministic); ``deterministic`` is
+    False when the config also draws a random resize per sample
+    (``random_resize_h_w_aspect``, or ``random_scale_limit`` with
+    ``resize_smallest_side``), so no resolution is canonical."""
     cfg = dict(aug_cfg or {})
     h, w = hw
     ops = []
@@ -48,7 +61,10 @@ def deterministic_resize_chain(aug_cfg, hw):
     if "resize_h_w" in cfg:
         h, w = _parse_hw(cfg["resize_h_w"])
         ops.append(("resize", (h, w)))
-    return ops, (h, w)
+    deterministic = not ("random_resize_h_w_aspect" in cfg
+                         or ("random_scale_limit" in cfg
+                             and "resize_smallest_side" in cfg))
+    return ops, (h, w), deterministic
 
 
 # ------------------------------------------------------------ resizing
@@ -128,14 +144,32 @@ class Augmentor:
                 f"augmentations.rotate={self.cfg['rotate']} is not in the "
                 "port yet (ROADMAP.md); rotate: 0 is the identity")
         self.max_time_step = int(self.cfg.get("max_time_step", 1))
+        self.capture_canonical_types = set()
+        self._tls = threading.local()
+
+    @property
+    def last_record(self):
+        """The spatial draw of this thread's last call: ``original_hw``,
+        ``canonical_hw`` (after every resize), ``crop`` ((top, left, h,
+        w) in canonical pixels, or None), ``hflip``, ``canonical_ok`` and
+        ``resize_deterministic``."""
+        return getattr(self._tls, "record", None)
+
+    @property
+    def last_canonical(self):
+        """{data_type: [canonical HWC frames]} of this thread's last call,
+        for the ``capture_canonical_types`` (empty unless the record's
+        ``canonical_ok``)."""
+        return getattr(self._tls, "canonical", {})
 
     def perform_augmentation(self, inputs, rng):
         """inputs: {data_type: [HWC arrays]}; ``rng``: the item's
         ``random.Random``. Returns (outputs, is_flipped); one draw is
         applied to every type and frame."""
         first = next(iter(inputs.values()))[0]
+        original_hw = tuple(first.shape[:2])
         cfg = self.cfg
-        ops, (h, w) = deterministic_resize_chain(cfg, first.shape[:2])
+        ops, (h, w), resize_deterministic = deterministic_resize_chain(cfg, original_hw)
         if "random_resize_h_w_aspect" in cfg:
             bh, bw = _parse_hw(cfg["random_resize_h_w_aspect"])
             aspect = 1.0 + rng.uniform(0, float(cfg.get("random_scale_limit", 0.2)))
@@ -147,21 +181,37 @@ class Augmentor:
             ops.append(("resize", (h, w)))
         if cfg.get("random_rotate_90", False):
             ops.append(("rot90", rng.randint(0, 3)))
+        crop = None
         if "random_crop_h_w" in cfg:
             ch, cw = _parse_hw(cfg["random_crop_h_w"])
             top = rng.randint(0, max(h - ch, 0))
             left = rng.randint(0, max(w - cw, 0))
-            ops.append(("crop", (top, left, ch, cw)))
+            crop = (top, left, ch, cw)
         elif "center_crop_h_w" in cfg:
             ch, cw = _parse_hw(cfg["center_crop_h_w"])
-            ops.append(("crop", (max(h - ch, 0) // 2, max(w - cw, 0) // 2, ch, cw)))
+            crop = (max(h - ch, 0) // 2, max(w - cw, 0) // 2, ch, cw)
+        if crop:
+            ops.append(("crop", crop))
         is_flipped = bool(cfg.get("horizontal_flip", False)) and rng.random() < 0.5
         if is_flipped:
             ops.append(("hflip", None))
-        out = {}
+        cut = next((i for i, (op, _) in enumerate(ops) if op != "resize"), len(ops))
+        canonical_ok = all(op in ("crop", "hflip") for op, _ in ops[cut:])
+        self._tls.record = {"original_hw": original_hw, "canonical_hw": (h, w),
+                            "crop": crop, "hflip": is_flipped,
+                            "canonical_ok": canonical_ok,
+                            "resize_deterministic": resize_deterministic}
+        canonical, out = {}, {}
         for data_type, frames in inputs.items():
             interp = self.interpolators.get(data_type)
-            out[data_type] = [self._apply(f, ops, interp) for f in frames]
+            if canonical_ok and data_type in self.capture_canonical_types:
+                # the chain in two halves: the output is the same arrays
+                pre = [self._apply(f, ops[:cut], interp) for f in frames]
+                canonical[data_type] = pre
+                out[data_type] = [self._apply(f, ops[cut:], interp) for f in pre]
+            else:
+                out[data_type] = [self._apply(f, ops, interp) for f in frames]
+        self._tls.canonical = canonical
         return out, is_flipped
 
     @staticmethod

@@ -60,6 +60,7 @@ class BaseDataset:
         data_info = (self.cfgdata.test if is_test
                      else (self.cfgdata.val if is_inference else self.cfgdata.train))
         self.data_info = data_info
+        self.name = cfg_get(self.cfgdata, "name", "dataset")
         self.roots = list(data_info.roots)
         self.seed = 0
         self.epoch = 0
@@ -98,6 +99,7 @@ class BaseDataset:
                 "one_hot_on_device is implemented for image datasets only; "
                 "drop the knob for video dataset types")
         self.input_labels = list(cfg_get(self.cfgdata, "input_labels", None) or [])
+        self.input_image = list(cfg_get(self.cfgdata, "input_image", None) or [])
 
         self.backends = {t: [] for t in self.data_types}
         self.sequence_lists = []

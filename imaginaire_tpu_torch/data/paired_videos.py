@@ -16,11 +16,15 @@ moves them to the device as (B, T, C, H, W).
 
 An inference dataset can pin one sequence
 (``set_inference_sequence_idx``): its items are then that sequence's
-frames one by one. The JAX dataset's teacher-cache hook
-(``DatasetFlowCacheHook``, its disk lookups in the loader's threads) is
-not ported: where a config turns the teacher's cache on, the trainer's
-``TeacherFlowCache.attach`` computes or looks up the same flows from
-the batch, in the thread that prepares it.
+frames one by one. With the teacher's flow cache on in mode auto or
+disk (``flow_cache`` and ``flow_network`` in the config), a training
+item of two frames or more carries a ``_flow_cache`` payload from
+``flow.cache.DatasetFlowCacheHook``, built in the loader's thread from
+the augmentor's record and canonical frames; the loader keeps it as a
+list of dicts, which ``TeacherFlowCache.attach`` consumes. Pinned
+inference items never carry one. Not ported (ROADMAP.md A.4): the JAX
+dataset's first-frame barrier for the threaded common attributes of a
+pinned sequence (the person crop of pose datasets).
 """
 
 from __future__ import annotations
@@ -49,6 +53,22 @@ class Dataset(BaseDataset):
                                    max(self.sequence_length_max, 1))
         self.inference_sequence_idx = None
         self._rebuild()
+        self._flow_hook = None
+        if not is_inference and not is_test and self.input_image:
+            from imaginaire_tpu_torch.flow.cache import (
+                DatasetFlowCacheHook,
+                flow_cache_settings,
+            )
+
+            if flow_cache_settings(cfg).enabled \
+                    and cfg_get(cfg, "flow_network", None) is not None:
+                image_type = self.input_image[0]
+                hook = DatasetFlowCacheHook(
+                    cfg, self.name, image_type, self.normalize.get(image_type, False),
+                    weights_path=cfg_get(cfg.flow_network, "weights_path", None))
+                if hook.active:
+                    self._flow_hook = hook
+                    self.augmentor.capture_canonical_types.add(image_type)
 
     def set_sequence_length(self, sequence_length):
         self.sequence_length = min(int(sequence_length), self.sequence_length_max)
@@ -107,5 +127,9 @@ class Dataset(BaseDataset):
                                    f"not {self.sequence_length}")
         out = self.process_item(self.load_item(root_idx, seq, frames), rng)
         out = self.concat_labels(out)
+        if self._flow_hook is not None and len(frames) >= 2:
+            out = self._flow_hook.attach_item(
+                out, root_idx, seq, list(frames), self.augmentor.last_record,
+                self.augmentor.last_canonical.get(self._flow_hook.image_type))
         out["key"] = f"{seq}/{frames[-1]}"
         return out

@@ -15,7 +15,10 @@ quarantined and skipped, and the sweep goes on (an error that says
 nothing about the checkpoint, such as a device fault, propagates). Each
 restored checkpoint gets FID and FID_ema (``trainer.write_metrics``)
 and, when asked, KID and PRDC (``trainer.compute_extra_metrics``), all
-into ``<logdir>/meters.jsonl`` at the checkpoint's iteration.
+into ``<logdir>/meters.jsonl`` at the checkpoint's iteration. For
+vid2vid they are video metrics over the first
+``trainer.num_videos_to_test`` validation sequences, each rolled out
+frame by frame, and there is no FID_ema.
 
 FID runs through ``write_metrics``, the JAX entry's fallback path: its
 continuous-evaluation plane and reference-feature store

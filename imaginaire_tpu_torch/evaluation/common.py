@@ -3,10 +3,10 @@
 
 ``get_activations`` loops a loader, optionally runs the generator, then
 imagenet-normalizes, resizes to 299x299 and feeds the Inception
-extractor. Not ported: the JAX loop's telemetry spans and its gather
-across host processes (the port runs one process), and
-``get_video_activations``, which waits for vid2vid inference (ROADMAP.md
-A.4).
+extractor; ``get_video_activations`` does the same over the pinned
+sequences of a video dataset, rolling a trainer out frame by frame. Not
+ported: the JAX loops' telemetry spans and their gather across host
+processes (the port runs one process, so nothing is sharded by process).
 """
 
 from __future__ import annotations
@@ -48,6 +48,41 @@ def get_activations(data_loader, key_real, key_fake, extractor,
         images = _as_nchw(data[key_real]) if generator_fn is None else generator_fn(data)
         feats = extractor(preprocess_for_inception(images.float()))
         acts.append(feats.detach().float().cpu().numpy())
+    if not acts:
+        return np.zeros((0, 2048), np.float32)
+    return np.concatenate(acts, axis=0)
+
+
+def get_video_activations(data_loader, key_real, key_fake, trainer, extractor,
+                          sample_size=None):
+    """(N, D) numpy activations of the frames of a video dataset's
+    sequences, the first ``sample_size`` of them (cut before anything
+    else, as the JAX package cuts before sharding). ``data_loader``
+    iterates the pinned sequence's frames in order (batch 1) and has the
+    ``dataset``. Each sequence is pinned; with a ``trainer``,
+    ``trainer.reset()`` starts it and ``trainer.test_single`` generates
+    each frame from its own history; without one, ``data[key_real]`` is
+    read: (B, T=1, H, W, C) host frames or (B, T, C, H, W) tensors.
+    ``key_fake`` is kept for the JAX signature."""
+    dataset = data_loader.dataset
+    indices = list(range(dataset.num_inference_sequences()))
+    if sample_size is not None:
+        indices = indices[:sample_size]
+    acts = []
+    for seq_idx in indices:
+        dataset.set_inference_sequence_idx(seq_idx)
+        if trainer is not None:
+            trainer.reset()
+        for data in data_loader:
+            if trainer is None:
+                images = data[key_real]
+                if images.ndim == 5:  # frame windows: time folds into the batch
+                    images = images.reshape((-1,) + tuple(images.shape[2:]))
+                images = _as_nchw(images)
+            else:
+                images = trainer.test_single(data)["fake_images"]
+            feats = extractor(preprocess_for_inception(images.float()))
+            acts.append(feats.detach().float().cpu().numpy())
     if not acts:
         return np.zeros((0, 2048), np.float32)
     return np.concatenate(acts, axis=0)

@@ -1,10 +1,13 @@
 """FID (port of ``imaginaire_tpu/evaluation/fid.py``).
 
-Activations come from ``common.get_activations``; the mean and
-covariance and the Frechet distance are computed on the host in numpy
-and ``scipy.linalg.sqrtm``, as in the JAX package. The real set's
-statistics are cached in an ``.npz`` tagged with the feature graph's
-version; a cache of another version is recomputed.
+Activations come from ``common.get_activations`` (images) or
+``common.get_video_activations`` (the pinned sequences of a video
+dataset rolled out by a trainer); the mean and covariance and the
+Frechet distance are computed on the host in numpy and
+``scipy.linalg.sqrtm``, as in the JAX package. The real set's statistics
+are cached in an ``.npz`` tagged with the feature graph's version; a
+cache of another version is recomputed. Fake statistics (a generator or
+a trainer) are never cached.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ import os
 
 import numpy as np
 
-from imaginaire_tpu_torch.evaluation.common import get_activations
+from imaginaire_tpu_torch.evaluation.common import get_activations, get_video_activations
 
 # the version of the Inception feature graph a cache was computed with
 # (the JAX package's constant: the two graphs are the same)
@@ -51,21 +54,28 @@ def calculate_frechet_distance(mu1, sigma1, mu2, sigma2, eps=1e-6):
 
 
 def load_or_compute_stats(path, data_loader, key_real, key_fake, extractor,
-                          generator_fn=None, max_batches=None):
-    """(mu, sigma) of a sweep. Fake statistics (``generator_fn``) are
-    always computed; real ones load from ``path`` when it holds this
-    graph version's, else are computed and written there."""
-    if path and os.path.exists(path) and generator_fn is None:
+                          generator_fn=None, trainer=None, is_video=False,
+                          sample_size=None, max_batches=None):
+    """(mu, sigma) of a sweep. Fake statistics (``generator_fn``, or a
+    video ``trainer``) are always computed; real ones load from ``path``
+    when it holds this graph version's, else are computed and written
+    there. ``is_video`` sweeps the first ``sample_size`` sequences."""
+    real = generator_fn is None and trainer is None
+    if path and os.path.exists(path) and real:
         npz = np.load(path)
         version = int(npz["graph_version"]) if "graph_version" in npz else 0
         if version == FEATURE_GRAPH_VERSION:
             return npz["mu"], npz["sigma"]
         print(f"FID: stale real-stat cache at {path} (feature graph "
               f"v{version} != v{FEATURE_GRAPH_VERSION}), recomputing")
-    acts = get_activations(data_loader, key_real, key_fake, extractor,
-                           generator_fn=generator_fn, max_batches=max_batches)
+    if is_video:
+        acts = get_video_activations(data_loader, key_real, key_fake, trainer,
+                                     extractor, sample_size)
+    else:
+        acts = get_activations(data_loader, key_real, key_fake, extractor,
+                               generator_fn=generator_fn, max_batches=max_batches)
     mu, sigma = activation_stats(acts)
-    if path and generator_fn is None:
+    if path and real:
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         np.savez(path, mu=mu, sigma=sigma, graph_version=FEATURE_GRAPH_VERSION)
         print(f"FID: cached real stats to {path}")
@@ -73,13 +83,17 @@ def load_or_compute_stats(path, data_loader, key_real, key_fake, extractor,
 
 
 def compute_fid(fid_path, data_loader, extractor, generator_fn,
-                key_real="images", key_fake="fake_images", max_batches=None):
-    """FID of ``generator_fn``'s images over ``data_loader`` against the
-    loader's real images (their statistics cached at ``fid_path``)."""
+                key_real="images", key_fake="fake_images", trainer=None,
+                is_video=False, sample_size=None, max_batches=None):
+    """FID of ``generator_fn``'s images (or, with ``is_video``, of
+    ``trainer``'s rollouts of the first ``sample_size`` sequences) over
+    ``data_loader`` against the loader's real images (their statistics
+    cached at ``fid_path``)."""
     mu_fake, sigma_fake = load_or_compute_stats(
         None, data_loader, key_real, key_fake, extractor,
-        generator_fn=generator_fn, max_batches=max_batches)
+        generator_fn=generator_fn, trainer=trainer, is_video=is_video,
+        sample_size=sample_size, max_batches=max_batches)
     mu_real, sigma_real = load_or_compute_stats(
         fid_path, data_loader, key_real, key_fake, extractor,
-        max_batches=max_batches)
+        is_video=is_video, sample_size=sample_size, max_batches=max_batches)
     return calculate_frechet_distance(mu_fake, sigma_fake, mu_real, sigma_real)

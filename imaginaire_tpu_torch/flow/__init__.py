@@ -2,6 +2,7 @@
 amortization layer (flow/cache.py) of the port."""
 
 from imaginaire_tpu_torch.flow.cache import (
+    DatasetFlowCacheHook,
     FlowCacheStore,
     TeacherFlowCache,
     flow_cache_settings,
@@ -19,4 +20,5 @@ from imaginaire_tpu_torch.flow.flownet2 import (
 
 __all__ = ["FlowNet", "FlowNet2", "FlowNetC", "FlowNetS", "FlowNetSD",
            "FlowNetFusion", "TeacherFlowCache", "FlowCacheStore",
+           "DatasetFlowCacheHook",
            "flow_cache_settings", "resolve_cache_dir", "transform_flow"]

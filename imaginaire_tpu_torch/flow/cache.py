@@ -1,5 +1,5 @@
 """Teacher-output amortization for the frozen FlowNet2 flow supervision
-(port of ``imaginaire_tpu/flow/cache.py``, without the dataset half).
+(port of ``imaginaire_tpu/flow/cache.py``).
 
 The vid2vid flow loss's teacher only ever sees real frames, so its
 ``(flow, conf)`` output is a function of the data batch alone. Two
@@ -13,15 +13,19 @@ layers keep it off the training step:
    the canonical resolution and the teacher's identity, or, for batches
    without dataset metadata, of the batch's own bytes. Keys, shard
    format (NHWC, float16 flow, uint8 conf) and directory layout are the
-   JAX package's, so one cache directory serves both packages.
+   JAX package's, so one cache directory serves both packages. Its
+   dataset half (``DatasetFlowCacheHook``) runs in the loader's threads:
+   a training item whose frame pairs all hit carries their canonical
+   ``(flow, conf)``, one with a miss its canonical frames for the
+   teacher; ``attach`` replays the item's crop and flip on either.
 
 Config group ``flow_cache``: ``enabled``, ``mode`` (auto | producer |
 disk), ``dir``, ``store_dtype``. The port's tensors are NCHW: images
 (B, T, 3, H, W) give ``flow_gt`` (B, T-1, 2, H, W) and ``conf_gt``
 (B, T-1, 1, H, W); the host copies the store needs are NHWC numpy.
-Not ported yet (ROADMAP.md): ``DatasetFlowCacheHook`` (it waits for the
-dataset port), the store's retries and chaos sites, and the telemetry
-spans and counters; the ``drain_stats`` meters are here.
+Not ported yet (ROADMAP.md A.9): the store's bounded retries and chaos
+sites, and the ``flow_cache/*`` telemetry spans and counters (the
+``drain_stats`` meters are here).
 """
 
 from __future__ import annotations
@@ -162,6 +166,9 @@ class FlowCacheStore:
     def path(self, key):
         return os.path.join(self.root, key[:2], key + ".npz")
 
+    def has(self, key):
+        return os.path.exists(self.path(key))
+
     def _quarantine(self, path, error):
         with self._lock:
             self.corrupt_shards += 1
@@ -219,6 +226,10 @@ class FlowCacheStore:
                 os.remove(tmp)
             except OSError:
                 pass
+
+    def count_miss(self, n=1):
+        with self._lock:
+            self.misses += n
 
     def stats(self):
         with self._lock:
@@ -282,9 +293,12 @@ class TeacherFlowCache:
 
     def attach(self, batch):
         """Attach ``flow_gt`` (B, T-1, 2, H, W) and ``conf_gt``
-        (B, T-1, 1, H, W) to a video batch, consuming any per-sample
-        ``_flow_cache`` payloads. ``flow_gt[:, t-1]`` supervises frame t
-        against frame t-1. Non-video batches (or T < 2) pass through."""
+        (B, T-1, 1, H, W) tensors on the teacher's device to a video
+        batch, consuming any per-sample ``_flow_cache`` payloads.
+        ``images`` is a host batch of the loader's (B, T, H, W, C) arrays,
+        as the trainer's host hook sees it, or a (B, T, C, H, W) tensor.
+        ``flow_gt[:, t-1]`` supervises frame t against frame t-1.
+        Non-video batches (or T < 2) pass through."""
         if not isinstance(batch, dict):
             return batch
         images = batch.get("images")
@@ -292,7 +306,10 @@ class TeacherFlowCache:
         if images is None or getattr(images, "ndim", 0) != 5 \
                 or images.shape[1] < 2 or "flow_gt" in batch:
             return batch
-        images = torch.as_tensor(images, dtype=torch.float32, device=self.device)
+        if isinstance(images, np.ndarray):
+            images = _to_nchw_device(images, self.device)
+        else:
+            images = torch.as_tensor(images, dtype=torch.float32, device=self.device)
         t0 = time.perf_counter()
         if isinstance(metas, (list, tuple)) and len(metas) == images.shape[0] \
                 and all(isinstance(m, dict) for m in metas):
@@ -397,3 +414,75 @@ class TeacherFlowCache:
         as NHWC host arrays."""
         flow, conf = self.wrapper(im_a, im_b)
         return _to_nhwc_host(flow), _to_nhwc_host(conf)
+
+
+class DatasetFlowCacheHook:
+    """The disk path's dataset half, owned by a video dataset.
+
+    On every training item of two frames or more it builds the item's
+    ``_flow_cache`` payload: the augmentation record, the cache key of
+    each frame pair, and either the pairs' canonical ``(flow, conf)``
+    read from the store in the loader's thread (every pair hit) or the
+    canonical frames for the teacher (a miss); a record that is not
+    ``canonical_ok`` ships alone. ``TeacherFlowCache.attach`` consumes
+    the payloads. Active for ``mode`` auto or disk with a cache
+    directory.
+    """
+
+    def __init__(self, cfg, dataset_name, image_type, normalize,
+                 weights_path=None):
+        from imaginaire_tpu_torch.flow.flow_net import DEFAULT_WEIGHTS
+
+        # the teacher wrapper's default, so these keys match its writes
+        weights_path = weights_path or DEFAULT_WEIGHTS
+        self.settings = flow_cache_settings(cfg)
+        cache_dir = resolve_cache_dir(cfg)
+        self.active = (self.settings.enabled
+                       and self.settings.mode in ("auto", "disk")
+                       and cache_dir is not None)
+        self.store = (FlowCacheStore(cache_dir, self.settings.store_dtype)
+                      if self.active else None)
+        self.image_type = image_type
+        self.normalize = bool(normalize)
+        self.dataset_name = dataset_name
+        self.teacher = teacher_id(weights_path)
+
+    def _canonical_src(self, canonical_frames):
+        """Captured canonical frames -> (T, Hc, Wc, C) float32 in the
+        teacher's input range (the dataset's own /255 and normalize)."""
+        frames = []
+        for f in canonical_frames:
+            arr = np.asarray(f)
+            if arr.ndim == 2:
+                arr = arr[:, :, None]
+            was_uint8 = arr.dtype == np.uint8
+            arr = arr.astype(np.float32)
+            if was_uint8:
+                arr = arr / 255.0
+            if self.normalize:
+                arr = arr * 2.0 - 1.0
+            frames.append(arr)
+        return np.stack(frames, axis=0)
+
+    def attach_item(self, out, root_idx, seq, stems, record, canonical):
+        """Attach the payload of the item of frames ``stems`` to ``out``."""
+        if not self.active or len(stems) < 2:
+            return out
+        if not record or not record.get("canonical_ok") or canonical is None:
+            out["_flow_cache"] = {"record": dict(record or {})}
+            return out
+        hw = record["canonical_hw"]
+        keys = [pair_key(self.dataset_name, root_idx, seq, stems[p + 1],
+                         stems[p], hw, self.teacher)
+                for p in range(len(stems) - 1)]
+        cached = [self.store.get(k) if self.store.has(k) else None for k in keys]
+        payload = {"record": dict(record), "keys": keys}
+        if all(c is not None for c in cached):
+            payload["flow"] = np.stack([c[0] for c in cached])
+            payload["conf"] = np.stack([c[1] for c in cached])
+        else:
+            # one miss recomputes the whole window (the teacher batches
+            # by item anyway)
+            payload["src"] = self._canonical_src(canonical)
+        out["_flow_cache"] = payload
+        return out

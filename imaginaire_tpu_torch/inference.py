@@ -6,9 +6,11 @@
 Builds the test loader and the trainer, restores the weights through
 the verified path (the logdir's pointer with fallback, or an explicit
 ``--checkpoint``, which is quarantined when it fails to verify and the
-newest verifiable checkpoint beside it loads instead), and writes one
-PNG a test item through ``trainer.test``. Routing through the serving
-engine is not in the port yet (ROADMAP.md).
+newest verifiable checkpoint beside it loads instead), and generates
+through ``trainer.test``: one PNG a test item for the image families,
+and for vid2vid every frame of every sequence of the test split, rolled
+out frame by frame (``<output_dir>/seq<idx>/<t>.png``). Routing through
+the serving engine is not in the port yet (ROADMAP.md A.3).
 """
 
 from __future__ import annotations

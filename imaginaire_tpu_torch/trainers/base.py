@@ -889,10 +889,12 @@ class BaseTrainer:
 
 
 class _Mapped:
-    """An iterable of ``fn(batch)`` over ``loader``'s batches."""
+    """An iterable of ``fn(batch)`` over ``loader``'s batches (with the
+    loader's ``dataset``)."""
 
     def __init__(self, loader, fn):
         self.loader, self.fn = loader, fn
+        self.dataset = getattr(loader, "dataset", None)
 
     def __iter__(self):
         return (self.fn(batch) for batch in self.loader)

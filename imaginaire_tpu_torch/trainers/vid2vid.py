@@ -30,18 +30,26 @@ told each new length before the epoch's loader starts reading ahead.
 Not ported: the whole-rollout scan (``trainer.rollout_scan`` raises) and
 the pipelined dispatch (``trainer.pipeline``, which the JAX package
 defines as bit-identical to the sequential loop: the port runs the
-sequential loop and says so once), the per-frame hooks of wc-vid2vid,
-DensePose preprocessing, and video inference from disk (ROADMAP.md).
+sequential loop and says so once), the per-frame hooks of wc-vid2vid
+(``_frame_override``, ``_after_gen_frame``: ROADMAP.md A.6) and
+DensePose preprocessing (A.4).
 
 Video inference is frame-recurrent: each frame conditions on the
 trainer's own previous outputs, which ``_generate_frame`` keeps in
 (B, T, C, H, W) rings; ``reset()`` starts a new sequence. Data dicts
 hold NCHW tensors (5-d with time at dim 1 for whole sequences).
+``test`` rolls out every pinned sequence of an inference dataset from
+disk frame by frame and writes ``<output_dir>/seq<idx>/<t>.png``. Video
+FID (``_compute_fid``), KID and PRDC (``_extra_metric_activations``) roll
+out the first ``trainer.num_videos_to_test`` validation sequences the
+same way, with ``inference_params()``: the video family re-estimates no
+BatchNorm statistics, so there is no FID_ema.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 
 import torch
 from torch.func import functional_call
@@ -473,14 +481,17 @@ class Trainer(BaseTrainer):
         return functional_call(self.net_G, params, (data_t,), strict=True)
 
     def reset(self):
-        """Start a new test sequence: forget the rollout history."""
+        """Start a new test sequence: forget the rollout history. (The JAX
+        trainer also counts sequences and frames to key each frame's
+        noise; the vid2vid generator draws no noise, so the port keeps no
+        counter.)"""
         self._test_prev_labels = None
         self._test_prev_images = None
 
     @torch.no_grad()
     def _generate_frame(self, data, t):
-        """Generate frame ``t`` of ``data`` from the stored history and
-        advance the history rings."""
+        """Generate frame ``t`` of ``data`` from the stored history with
+        ``inference_params()`` and advance the history rings."""
         data_t = self._get_data_t(data, t, self._test_prev_labels,
                                   self._test_prev_images)
         fake = self._apply_G(self.inference_params(), data_t)["fake_images"]
@@ -491,21 +502,153 @@ class Trainer(BaseTrainer):
         return fake
 
     def test(self, data_loader, output_dir, inference_args=None):
-        """Video inference from disk (pinned sequences rolled out frame by
-        frame) is not ported yet."""
-        raise NotImplementedError(
-            "vid2vid inference from disk (trainer.test, the pinned-sequence "
-            "rollout) is not in the port yet (ROADMAP.md); stream frames "
-            "through the serving engine or test_single()")
+        """Frame-by-frame video generation into ``output_dir``. With an
+        inference dataset that pins sequences, every sequence is rolled
+        out frame by frame (``_test_sequences``); any other iterable of
+        batches rolls out each batch's time axis (``_test_batches``)."""
+        dataset = getattr(data_loader, "dataset", None)
+        if dataset is not None and getattr(dataset, "is_inference", False) \
+                and hasattr(dataset, "set_inference_sequence_idx"):
+            return self._test_sequences(dataset, output_dir, dict(inference_args or {}))
+        return self._test_batches(data_loader, output_dir)
+
+    def _inference_sequence_indices(self, dataset, inference_args):
+        """Every sequence: the port runs one process (the JAX trainer
+        deals them out round-robin to its host processes)."""
+        return list(range(dataset.num_inference_sequences()))
+
+    def _frame_loader(self, dataset):
+        """A loader of a pinned sequence's frames: batch 1, in order (its
+        threads, ``data.num_workers``, return items in order), no
+        shuffle, no ``drop_last``."""
+        from imaginaire_tpu_torch.data.loader import DataLoader
+
+        return DataLoader(dataset, batch_size=1, shuffle=False, drop_last=False,
+                          num_workers=cfg_get(self.cfg.data, "num_workers", 0))
+
+    def _pin_inference_sequence(self, dataset, seq_idx, inference_args):
+        dataset.set_inference_sequence_idx(seq_idx)
+
+    def _start_of_test_sequence(self, data):
+        """Hook before a test sequence's first frame (wc-vid2vid resets its
+        renderer here). No-op."""
+
+    def _save_test_frame(self, output_dir, key, t, fake):
+        """``<output_dir>/<key>/<t:04d>.png``. The JAX trainer writes
+        ``.jpg`` through PIL; the port writes PNG through its own codec
+        (the machine with the card has no JPEG encoder)."""
+        from imaginaire_tpu_torch.utils.visualization import save_image_grid, tensor2im
+
+        path = os.path.join(output_dir, str(key), f"{t:04d}.png")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        save_image_grid([tensor2im(fake[0].float().permute(1, 2, 0).cpu().numpy())], path)
+
+    def _test_sequences(self, dataset, output_dir, inference_args):
+        """Pin each sequence, reset, and roll it out from a batch-1 frame
+        loader with the generated history carried."""
+        os.makedirs(output_dir, exist_ok=True)
+        frame_loader = self._frame_loader(dataset)
+        for seq_idx in self._inference_sequence_indices(dataset, inference_args):
+            self._pin_inference_sequence(dataset, seq_idx, inference_args)
+            self.reset()
+            for t, data in enumerate(frame_loader):
+                data = numeric_only(self.start_of_iteration(data, -1))
+                if t == 0:
+                    self._start_of_test_sequence(data)
+                fake = self._generate_frame(data, 0)
+                self._save_test_frame(output_dir, f"seq{seq_idx:04d}", t, fake)
+
+    def _test_batches(self, data_loader, output_dir):
+        """Each batch one sequence: reset, then its time axis in order
+        (one frame for 4-d images), saved under its first key."""
+        os.makedirs(output_dir, exist_ok=True)
+        for it, data in enumerate(data_loader):
+            data = self.start_of_iteration(data, -1)
+            key = data.get("key", f"{it:06d}")
+            if isinstance(key, (list, tuple)):
+                key = key[0]
+            if not isinstance(key, (str, bytes)):
+                key = f"{it:06d}"
+            data = numeric_only(data)
+            self.reset()
+            self._start_of_test_sequence(data)
+            seq_len = data["images"].shape[1] if data["images"].dim() == 5 else 1
+            for t in range(seq_len):
+                self._save_test_frame(output_dir, str(key), t,
+                                      self._generate_frame(data, t))
 
     def test_single(self, data):
         """Generate the next frame of the current test sequence from one
-        frame's data (NCHW tensors or arrays). Call ``reset()`` at each
-        sequence start."""
-        data = {k: torch.as_tensor(v, device=self.device)
-                for k, v in numeric_only(dict(data)).items()}
-        data = self._start_of_iteration(data, -1)
+        frame's data: a loader's host batch (NHWC arrays, (B, T=1, H, W,
+        C) windows) or NCHW tensors. Call ``reset()`` at each sequence
+        start."""
+        data = self._to_device(self._start_of_iteration(numeric_only(dict(data)), -1))
+        data = {k: v.to(self.device) for k, v in data.items() if torch.is_tensor(v)}
         return {"fake_images": self._generate_frame(data, 0)}
+
+    # ----------------------------------------------------------- evaluation
+
+    def _val_sequences(self, what):
+        """The validation dataset when it pins sequences, else None (and
+        ``what`` is reported skipped)."""
+        dataset = getattr(self.val_data_loader, "dataset", None)
+        if dataset is None or not hasattr(dataset, "set_inference_sequence_idx"):
+            print(f"{what} skipped: the validation dataset has no sequence "
+                  "pinning (set_inference_sequence_idx)")
+            return None
+        return dataset
+
+    def _compute_fid(self):
+        """Video FID of ``inference_params()``: the first
+        ``trainer.num_videos_to_test`` validation sequences rolled out
+        frame by frame against their real frames (statistics cached in
+        the logdir's ``real_stats_video_<data name>.npz``)."""
+        if self.val_data_loader is None:
+            return None
+        dataset = self._val_sequences("Video FID")
+        if dataset is None:
+            return None
+        from imaginaire_tpu_torch.evaluation.fid import compute_fid
+
+        try:
+            extractor = self._fid_extractor()
+        except FileNotFoundError as e:
+            print(f"FID skipped: {e}")
+            return None
+        data_name = cfg_get(cfg_get(self.cfg, "data", {}), "name", "data")
+        fid_path = os.path.join(cfg_get(self.cfg, "logdir", "."),
+                                f"real_stats_video_{data_name}.npz")
+        return float(compute_fid(
+            fid_path, self._eval_frames(dataset), extractor, None, trainer=self,
+            is_video=True, sample_size=self._num_videos_to_test()))
+
+    def _num_videos_to_test(self):
+        return cfg_get(self.cfg.trainer, "num_videos_to_test", 64)
+
+    def _eval_frames(self, dataset):
+        """The frame loader with each frame on the device as NCHW tensors
+        (the real frames' sweep reads them without a trainer)."""
+        return self._eval_loader(self._frame_loader(dataset))
+
+    def _extra_metric_activations(self, extractor):
+        """(real, fake) activations for KID and PRDC from the same rollout
+        as video FID; the real ones cached across a checkpoint sweep in
+        ``real_acts_video_<data name>.npz``."""
+        dataset = self._val_sequences("Video KID/PRDC")
+        if dataset is None:
+            return None
+        from imaginaire_tpu_torch.evaluation.common import get_video_activations
+
+        sample_size = self._num_videos_to_test()
+        frame_loader = self._eval_frames(dataset)
+        act_fake = get_video_activations(frame_loader, "images", "fake_images", self,
+                                         extractor, sample_size=sample_size)
+        data_name = cfg_get(cfg_get(self.cfg, "data", {}), "name", "data")
+        act_real = self._cached_real_activations(
+            f"real_acts_video_{data_name}.npz",
+            lambda: get_video_activations(frame_loader, "images", "fake_images", None,
+                                          extractor, sample_size=sample_size))
+        return act_real, act_fake
 
 
 def _mean_losses(hist):

@@ -669,3 +669,65 @@ def test_ema_bn_reestimation_through_the_kernel_matches_plain(cuda_device):
         scale = max(float(plain[name].abs().max()), float(buffers[name].abs().max()))
         assert float((value - plain[name]).abs().max()) <= 1e-4 * scale, name
     assert all(torch.equal(v, live[k]) for k, v in trainer.net_G.state_dict().items())
+
+
+V2V_UNIT_CONFIG = UNIT_CONFIG.parent / "vid2vid_street.yaml"
+
+
+@pytest.mark.cuda
+def test_vid2vid_pinned_sequence_rollout_through_the_kernel_matches_plain(
+        cuda_device, tmp_path):
+    """``trainer.test`` on a pinned sequence of 4 frames (the unit config's
+    narrow generator, 64x64 PNG frames) on the card: every frame from the
+    third on warps once through the resample2d kernel; the same rollout
+    through the plain warp launches nothing and gives the same frames
+    within 1e-4 (the warp's 1e-5, carried through the generator by the
+    frames it feeds back)."""
+    import numpy as np
+
+    from imaginaire_tpu_torch.config import Config
+    from imaginaire_tpu_torch.data.loader import DataLoader
+    from imaginaire_tpu_torch.data.paired_videos import Dataset
+    from imaginaire_tpu_torch.data.png import write_png
+    from imaginaire_tpu_torch.model_utils import fs_vid2vid
+    from imaginaire_tpu_torch.trainers.vid2vid import Trainer
+
+    rng = np.random.RandomState(0)
+    frames = 4
+    for t in range(frames):
+        for kind, arr in (("images", rng.randint(0, 256, (64, 64, 3))),
+                          ("seg_maps", rng.randint(0, 12, (64, 64)))):
+            (tmp_path / "data" / kind / "seq0000").mkdir(parents=True, exist_ok=True)
+            write_png(str(tmp_path / "data" / kind / "seq0000" / f"{t:05d}.png"),
+                      arr.astype(np.uint8))
+    cfg = Config(str(V2V_UNIT_CONFIG), overrides={"data": {
+        "input_types": [{"images": {"ext": "png", "num_channels": 3,
+                                    "interpolator": "BILINEAR", "normalize": True}},
+                        {"seg_maps": {"ext": "png", "num_channels": 12,
+                                      "interpolator": "NEAREST", "is_mask": True}}],
+        "val": {"roots": [str(tmp_path / "data")]}}})
+    trainer = Trainer(cfg, device="cuda")
+    trainer.init_state(seed=0)
+    loader = DataLoader(Dataset(cfg, is_inference=True), batch_size=1, shuffle=False,
+                        drop_last=False)
+    runs, save = {}, trainer._save_test_frame
+    for route in ("kernel", "plain"):
+        out = []
+        trainer._save_test_frame = lambda d, key, t, fake: (
+            out.append(fake.clone()), save(d, key, t, fake))
+        warp = fs_vid2vid.resample2d
+        if route == "plain":
+            fs_vid2vid.resample2d = rs.resample2d_plain
+        before = rs.launches
+        try:
+            trainer.test(loader, str(tmp_path / route))
+        finally:
+            fs_vid2vid.resample2d = warp
+        runs[route] = (rs.launches - before, out)
+    assert runs["kernel"][0] == frames - 2 and runs["plain"][0] == 0
+    assert len(runs["kernel"][1]) == len(runs["plain"][1]) == frames
+    assert sorted(p.name for p in (tmp_path / "kernel" / "seq0000").iterdir()) == [
+        f"{t:04d}.png" for t in range(frames)]
+    for got, want in zip(runs["kernel"][1], runs["plain"][1]):
+        assert got.shape == (1, 3, 64, 64) and torch.isfinite(got).all()
+        assert float((got - want).abs().max()) <= 1e-4

@@ -40,6 +40,7 @@ Tolerances:
 """
 
 import json
+import os
 from types import SimpleNamespace
 
 import flax
@@ -599,9 +600,17 @@ def test_adam_state_of_both_networks_bridges(pair):
                                   "few_shot", "warp_ref", "densepose", "inference"])
 def test_unported_branches_raise_naming_the_roadmap(what, tmp_path):
     if what == "inference":
+        # inference from disk is ported (tests/test_torch_vid2vid_eval.py);
+        # a pose dataset's still needs DensePose preprocessing
         trainer = Trainer(Config(CFG, overrides=CUT), device="cpu")
+        trainer.test([], str(tmp_path / "out"))
+        assert os.path.isdir(tmp_path / "out")
+        pose = Trainer(Config(CFG, overrides=dict(CUT, data=dict(
+            CUT["data"], for_pose_dataset=dict(), input_labels=["pose_maps-densepose"]))),
+            device="cpu")
+        frame = np.zeros((1, 1, 4, 4, 3), np.float32)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trainer.test([], str(tmp_path))
+            pose.test([{"label": frame, "images": frame}], str(tmp_path))
         return
     if what == "warp_ref":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
