@@ -16,7 +16,8 @@ Phases, one line each; any failure exits non-zero:
    shape the main paths give it (and at edge shapes: for
    spade_modulation every path of its plan and the plan's boundaries,
    forward and backward in fp32 and bf16, the bf16 forward to one ulp
-   given the same statistics),
+   given the same statistics, and fs-vid2vid's hyper-route planes up to
+   512x512),
    and time both (CUDA events, L2 flushed before each launch) beside the
    card's bound for the same work and, where one exists, the PyTorch
    call that computes the same function; resample2d is timed at both
@@ -148,7 +149,34 @@ Phases, one line each; any failure exits non-zero:
    on the same frames in producer mode. Seconds by part (load, rollout,
    PNG, Inception, ``sqrtm``), rollout frames/s, launches, peak memory
    and the card are printed;
-12. a ``kernels`` JSON line, the nvidia-smi line, and the final JSON line.
+12. fs-vid2vid (``fs_vid2vid_entry``, after phase 10): a seeded dataset of
+   4 sequences of 6 frames (540x960 RGB frames as PNG, dlib-68 landmark
+   JSON: the repository fixture's face placed in the frame and jittered
+   frame to frame) packed by ``build_packed_dataset``;
+   configs/projects/fs_vid2vid/faceForensics/bf16.yaml with the forced
+   overrides (the two ``allow_random_init``, ``ext: png``), its splits and
+   a test split pointed there. The serving engine (fresh seeded weights)
+   serves two interleaved 6-frame streams at 512x512, each driven by one
+   sequence with another's frame as its reference (resample2d 11 a
+   stream, the modulation 0: the config's SPADE norms have a BatchNorm
+   base), each within 2e-3 of itself served alone; with
+   ``gen.activation_norm_type: hyper_spatially_adaptive`` a 3-frame
+   stream runs the modulation kernel 12 times a forward, and one fp32
+   frame and one fp32 G step (TF32 off) through the kernels are held
+   within 1e-3 of the same through their plain versions;
+   ``imaginaire_tpu_torch.train.main`` trains 4 iterations in-process
+   (batch 3, sequence length 4, bf16; resample2d 14 and its backward 7 an
+   iteration, the others 0), the losses are finite, the weight
+   generator's FC stacks and the flow network move and the checkpoint
+   verifies; one fp32 G step (TF32 off) is held within 1e-3 of its plain
+   version; ``imaginaire_tpu_torch.inference.main`` writes the 6 frames of
+   driving sequence 1 with sequence 0's first frame as the reference
+   (resample2d 11), equal bit for bit to ``ServingEngine.load_weights()``
+   and a stream of the same frames. The generator's parameters, the
+   median iteration, frames/s, D and G step ms by frame type, stream
+   frame ms at p50 and p99, peak memory and the checkpoint's bytes and
+   save seconds are printed;
+13. a ``kernels`` JSON line, the nvidia-smi line, and the final JSON line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -650,10 +678,13 @@ def check_modulation(spade_mod):
     fwd = lambda x, gs, bs: spade_mod._launch_fwd(x, gs, bs, 1e-5)  # noqa: E731
     bwd = spade_mod._launch_bwd
     rows, bwd_rows, max_err, bwd_err = [], [], 0.0, 0.0
-    cases = [(shape, calls, n_pairs, 0) for shape, calls in MODULATION_SHAPES
+    cases = [(shape, calls, n_pairs, 0, "spade") for shape, calls in MODULATION_SHAPES
              for n_pairs in (1, 2)]
-    cases += [(shape, 0, n_pairs, offset) for shape, n_pairs, offset in MODULATION_EDGE]
-    for shape, calls, n_pairs, offset in cases:
+    cases += [(shape, 0, n_pairs, offset, "edge")
+              for shape, n_pairs, offset in MODULATION_EDGE]
+    # fs-vid2vid's hyper route: planes past SPADE's 128x128, up to 512x512
+    cases += [(shape, calls, 1, 0, "fs") for shape, calls in FS_MODULATION_SHAPES]
+    for shape, calls, n_pairs, offset, path in cases:
         for dtype in (torch.float32, torch.bfloat16):
             x, gs, bs, g = modulation_inputs(shape, n_pairs, dtype, gen, offset)
             name = f"{str(dtype).split('.')[-1]} n_pairs={n_pairs}"
@@ -672,7 +703,7 @@ def check_modulation(spade_mod):
                 size = x.element_size()
                 bound, bound_by = modulation_bound_ms(shape, 1, size)
                 row = {"shape": list(shape), "calls": calls, "dtype": name,
-                       "route": routes[0],
+                       "route": routes[0], "path": path,
                        "ms": time_ms(lambda: fwd(x, gs, bs)),
                        "plain_ms": time_ms(lambda: spade_mod.spade_modulation_plain(x, gs, bs)),
                        "bound_ms": bound, "bound_by": bound_by,
@@ -682,7 +713,7 @@ def check_modulation(spade_mod):
                 phase("kernel", name="spade_modulation", **row)
                 bound, bound_by = modulation_bwd_bound_ms(shape, 1, size)
                 row = {"shape": list(shape), "calls": calls, "dtype": name,
-                       "route": routes[1],
+                       "route": routes[1], "path": path,
                        "ms": time_ms(lambda: bwd(x, gs, mean_p, rstd_p, g)),
                        "plain_ms": time_ms(lambda: spade_mod.spade_modulation_bwd_plain(
                            x, gs, mean_p, rstd_p, g)),
@@ -967,10 +998,13 @@ def one_hot_request(rng, seed):
 
 
 def set_fused(net, value):
-    from imaginaire_tpu_torch.layers.activation_norm import SpatiallyAdaptiveNorm
+    from imaginaire_tpu_torch.layers.activation_norm import (
+        HyperSpatiallyAdaptiveNorm,
+        SpatiallyAdaptiveNorm,
+    )
 
     for m in net.modules():
-        if isinstance(m, SpatiallyAdaptiveNorm):
+        if isinstance(m, (SpatiallyAdaptiveNorm, HyperSpatiallyAdaptiveNorm)):
             m.fused_modulation = value
 
 
@@ -1337,6 +1371,53 @@ def resumed_run(trainer_cls, args, saved, cfg_path):
             f"of {len(saved)}, first batch {record.get('batch', {}).get('key')} "
             f"vs an unbroken run's {want['key']}")
     return trainer, record
+
+
+# fs-vid2vid (phase 12): configs/projects/fs_vid2vid/faceForensics/bf16.yaml
+# with the overrides the repository forces (no VGG19 or FlowNet2 weights;
+# PNG frames: the card's machine has no JPEG codec) on a seeded dataset of
+# 4 sequences of 6 frames: 540x960 RGB frames and dlib-68 landmark JSON
+# (a face placed in the frame, jittered frame to frame), packed. The
+# data pipeline resizes the frames' smallest side to 1024, draws the
+# landmarks' edge map there and crops the face to 512x512.
+FS_CONFIG = REPO / "configs/projects/fs_vid2vid/faceForensics/bf16.yaml"
+FS_LANDMARK_TEMPLATE = REPO / "tests/fixtures/face/raw/landmarks-dlib68/person1/00000.json"
+FS_SEQUENCES, FS_FRAMES, FS_RAW_HW = 4, 6, (540, 960)
+FS_ITERATIONS, FS_SEQ, FS_BATCH = 4, 4, 3
+FS_HW = (512, 512)
+FS_FORCED = {"trainer": {"perceptual_loss": {"allow_random_init": True}},
+             "flow_network": {"allow_random_init": True}}
+# the harness's cadences (the model is the config's): no snapshot in 4
+# iterations, every step timed
+FS_CADENCES = {"logging_iter": 1, "snapshot_save_iter": 1000, "snapshot_save_epoch": 1000,
+               "image_save_iter": 1000, "trainer": {"speed_benchmark": True}}
+FS_HYPER = {"gen": {"activation_norm_type": "hyper_spatially_adaptive"}}
+# launches, predicted from the code: a frame warps the (picked) reference
+# from the first frame on and the previous output once one is known; a
+# training frame warps in its D step's and its G step's forward, and its
+# G backward runs the warps' backward (dflow only: the reference is data,
+# the previous output detached). The SPADE norms of the committed config
+# have a BatchNorm base, which the modulation kernel refuses (0 launches);
+# the hyper route's 6 HyperRes2dBlocks run 2 hyper norms each, whose
+# first pair fuses with the instance norm: 12 a forward
+FS_STREAM_FRAMES = 6
+FS_STREAM_RESAMPLE = 1 + 2 * (FS_STREAM_FRAMES - 1)
+FS_HYPER_FRAMES = 3
+FS_HYPER_MODULATION = 12
+FS_ENTRY_LAUNCHES = {"resample2d": 2 * (2 * FS_SEQ - 1),
+                     "resample2d_bwd": 2 * FS_SEQ - 1,
+                     "correlation": 0, "channelnorm": 0}
+# (B, C, H, W) of the hyper route's 12 modulations a forward at batch 1
+FS_MODULATION_SHAPES = [
+    ((1, 1024, 16, 16), 2), ((1, 1024, 32, 32), 1), ((1, 512, 32, 32), 1),
+    ((1, 512, 64, 64), 1), ((1, 256, 64, 64), 1), ((1, 256, 128, 128), 1),
+    ((1, 128, 128, 128), 1), ((1, 128, 256, 256), 1), ((1, 64, 256, 256), 1),
+    ((1, 64, 512, 512), 1), ((1, 32, 512, 512), 1)]
+# one fp32 frame / G step (TF32 off) through the kernels against the same
+# through their plain versions: the frame max-abs, each loss and the grad
+# norm relative
+TOL_FS_FRAME = 1e-3
+TOL_FS_STEP_REL = 1e-3
 
 
 class HostClocks:
@@ -2376,6 +2457,428 @@ def vid2vid_eval_entry(rs, corr, cn, workdir, device="cuda", overrides=None):
     return row
 
 
+def write_face_dataset(root, sequences=FS_SEQUENCES, frames=FS_FRAMES, hw=FS_RAW_HW,
+                       seed=ENTRY_SEED):
+    """Seeded RGB frames as PNG through the port's encoder and dlib-68
+    landmark JSON in the repository fixture's format: the fixture's face,
+    scaled to 20-30% of the frame's height and placed inside the frame a
+    sequence, moved and jittered frame to frame; packed by
+    ``build_packed_dataset``."""
+    from imaginaire_tpu_torch.data.backends import build_packed_dataset
+    from imaginaire_tpu_torch.data.png import write_png
+
+    template = np.asarray(json.loads(FS_LANDMARK_TEMPLATE.read_text()), np.float64)
+    template -= template.mean(axis=0)
+    template /= np.abs(template).max()
+    rng = np.random.RandomState(seed)
+    raw = root / "raw"
+    h, w = hw
+    for s_ in range(sequences):
+        size = rng.uniform(0.2, 0.3) * h
+        center = np.array([rng.uniform(0.35, 0.65) * w, rng.uniform(0.4, 0.6) * h])
+        for t in range(frames):
+            center = center + rng.uniform(-4, 4, 2)
+            points = template * size + center + rng.normal(0, 1.0, template.shape)
+            seq = f"seq{s_:04d}"
+            for kind in ("images", "landmarks-dlib68"):
+                (raw / kind / seq).mkdir(parents=True, exist_ok=True)
+            write_png(raw / "images" / seq / f"{t:05d}.png",
+                      rng.randint(0, 256, hw + (3,)).astype(np.uint8))
+            (raw / "landmarks-dlib68" / seq / f"{t:05d}.json").write_text(
+                json.dumps(np.round(points, 1).tolist()))
+    return build_packed_dataset(str(raw), str(root / "packed"),
+                                ["images", "landmarks-dlib68"])
+
+
+def fs_entry_config(root, packed, overrides=None, name="fs.yaml"):
+    """The FaceForensics config, its splits (and a test split) pointed at
+    the packed dataset, the forced overrides, PNG frames, the harness's
+    cadences, then ``overrides``, written to ``root / name``."""
+    import yaml
+
+    from imaginaire_tpu_torch.config import load_yaml, recursive_update
+
+    cfg = load_yaml(FS_CONFIG)
+    for split in ("train", "val"):
+        cfg["data"][split]["roots"] = [packed]
+    cfg["data"]["input_types"][0]["images"]["ext"] = "png"
+    recursive_update(cfg, copy.deepcopy(FS_FORCED))
+    recursive_update(cfg, copy.deepcopy(FS_CADENCES))
+    recursive_update(cfg, copy.deepcopy(overrides or {}))
+    cfg["test_data"] = dict(copy.deepcopy(cfg["data"]), test=copy.deepcopy(cfg["data"]["val"]))
+    path = root / name
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def fs_frames(cfg, driving, reference, n=FS_STREAM_FRAMES):
+    """Stream frames of sequence ``driving`` with frame 0 of sequence
+    ``reference`` as the reference, through the port's data pipeline."""
+    from imaginaire_tpu_torch.data.paired_few_shot_videos import Dataset
+
+    ds = Dataset(cfg, is_inference=True)
+    ds.set_inference_sequence_idx(driving, reference, 0)
+    out = []
+    for t in range(n):
+        item = ds[t]
+        out.append({"label": item["label"], "ref_images": item["ref_images"][None],
+                    "ref_labels": item["ref_labels"][None]})
+    return out
+
+
+def fs_streams(rs, spade_mod, cfg, device):
+    """Phase 12, part 1: two interleaved 6-frame streams at 512x512, each
+    driven by one sequence with another's frame as its reference; each
+    against itself served alone."""
+    from imaginaire_tpu_torch.serving.engine import engine_from_config
+
+    frames = {"A": fs_frames(cfg, 0, 1), "B": fs_frames(cfg, 2, 3)}
+    engine = engine_from_config(cfg, device=device)
+    engine.initialize(seed=ENTRY_SEED)
+    warm = engine.warm()
+    rs.launches = spade_mod.launches = 0
+    streams = {sid: engine.stream(sid) for sid in frames}
+    outputs, per_stream = {sid: [] for sid in frames}, dict.fromkeys(frames, 0)
+    for t in range(FS_STREAM_FRAMES):
+        for sid, session in streams.items():
+            before = rs.launches
+            outputs[sid].append(session.step(frames[sid][t]))
+            per_stream[sid] += rs.launches - before
+    modulation = spade_mod.launches
+    stats = engine.stats()
+    bad = [(sid, t) for sid, outs in outputs.items() for t, img in enumerate(outs)
+           if img.shape != (1,) + FS_HW + (3,) or not np.isfinite(img).all()
+           or np.abs(img).max() > 1.0]
+    alone_diff = {}
+    for sid in frames:
+        alone = engine.stream(f"{sid}-alone")
+        diff = max(float(np.abs(alone.step(f) - outputs[sid][t]).max())
+                   for t, f in enumerate(frames[sid]))
+        alone_diff[sid] = (diff, diff / max(float(np.abs(np.stack(outputs[sid])).max()), 1e-30))
+        engine.close_stream(f"{sid}-alone")
+    if per_stream != dict.fromkeys(frames, FS_STREAM_RESAMPLE) or modulation or bad \
+            or any(a > TOL_STREAM or r > TOL_STREAM_REL for a, r in alone_diff.values()):
+        raise AssertionError(f"fs streams: resample2d launches {per_stream} (expected "
+                             f"{FS_STREAM_RESAMPLE} each), modulation {modulation}, bad "
+                             f"frames {bad}, against each stream alone {alone_diff}")
+    label = engine.label(*FS_HW, 1, tag="stream")
+    ms = stats["exec_ms"][label]
+    row = {"warm_ms": warm, "stream_launches": per_stream, "modulation_launches": modulation,
+           "frame_ms": ms, "p50_ms": float(np.percentile(ms, 50)),
+           "p99_ms": float(np.percentile(ms, 99)), "alone_diff": alone_diff,
+           "generator_params": sum(p.numel() for p in engine.trainer.net_G.parameters())}
+    del engine, streams
+    return row, frames
+
+
+def fs_warp_frame(trainer, frames, device):
+    """A G step's data for a frame with its previous frame: frame 1's
+    label and reference from ``frames``, frame 0's label as the history,
+    seeded real and previous images."""
+    f0, f1 = (trainer._to_device({k: np.asarray(v) for k, v in f.items()})
+              for f in frames[:2])
+    gen = torch.Generator(device=device).manual_seed(9)
+
+    def image(*lead):
+        return torch.tanh(torch.randn(lead + (3,) + FS_HW, generator=gen, device=device))
+
+    return {"label": f1["label"], "image": image(1), "ref_images": f1["ref_images"],
+            "ref_labels": f1["ref_labels"], "prev_labels": f0["label"][:, None],
+            "prev_images": image(1, 1), "past_stacks": {}}
+
+
+def fs_hyper_route(rs, spade_mod, cfg_hyper, frames, device):
+    """Phase 12, part 2: the ``hyper_spatially_adaptive`` route, which
+    runs the modulation kernel: one 3-frame stream (12 launches a
+    forward), one fp32 frame and one fp32 G step (TF32 off) through the
+    kernels against the same through their plain versions."""
+    from imaginaire_tpu_torch.serving.engine import engine_from_config
+    from imaginaire_tpu_torch.trainers.fs_vid2vid import Trainer
+
+    engine = engine_from_config(cfg_hyper, device=device)
+    engine.initialize(seed=ENTRY_SEED)
+    rs.launches = spade_mod.launches = 0
+    session = engine.stream("hyper")
+    outs = [session.step(f) for f in frames[:FS_HYPER_FRAMES]]
+    launches = {"spade_modulation": spade_mod.launches, "resample2d": rs.launches}
+    want = {"spade_modulation": FS_HYPER_FRAMES * FS_HYPER_MODULATION,
+            "resample2d": 1 + 2 * (FS_HYPER_FRAMES - 1)}
+    if launches != want or not all(np.isfinite(o).all() and np.abs(o).max() <= 1 for o in outs):
+        raise AssertionError(f"hyper stream launches {launches}, expected {want}")
+
+    # one fp32 warp frame (TF32 off), kernels vs plain versions
+    torch.backends.cudnn.allow_tf32 = False
+    trainer = engine.trainer
+    with torch.inference_mode():
+        data = engine._to_device(frames[FS_HYPER_FRAMES])
+        data_t = trainer._get_data_t(data, 0, session.prev_labels, session.prev_images)
+        spade_mod.launches = 0
+        kernel = trainer._apply_G(engine._variables, data_t)["fake_images"]
+        frame_launches = spade_mod.launches
+        set_fused(trainer.net_G, "none")
+        with plain_kernels():
+            plain = trainer._apply_G(engine._variables, data_t)["fake_images"]
+        frame_err = (kernel - plain).abs().max().item()
+    del engine, session
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # one fp32 G step on a warp frame, kernels vs plain versions
+    gtrainer = Trainer(cfg_hyper, device=device, train=True)
+    gtrainer.init_state(seed=ENTRY_SEED)
+    gtrainer.compute_dtype = torch.float32
+    data_t = fs_warp_frame(gtrainer, frames, device)
+    snap = [{k: v.clone() for k, v in n.state_dict().items()}
+            for n in (gtrainer.net_G, gtrainer.net_D)]
+
+    def g_step():
+        out = gtrainer._step(gtrainer.net_G, gtrainer.opt_G,
+                             lambda: gtrainer.gen_forward(data_t)[0], None, "gen_step")
+        return {k: float(v) for k, v in out.items()}
+
+    spade_mod.launches = spade_mod.bwd_launches = 0
+    kernel_step = g_step()
+    step_launches = {"forward": spade_mod.launches, "backward": spade_mod.bwd_launches}
+    for n, sd in zip((gtrainer.net_G, gtrainer.net_D), snap):
+        n.load_state_dict(sd)
+    set_fused(gtrainer.net_G, "none")
+    with plain_kernels():
+        spade_mod.launches = spade_mod.bwd_launches = 0
+        plain_step = g_step()
+        plain_launches = spade_mod.launches + spade_mod.bwd_launches
+    torch.backends.cudnn.allow_tf32 = True
+    rel = {k: abs(kernel_step[k] - plain_step[k]) / max(abs(plain_step[k]), 1e-30)
+           for k in plain_step}
+    worst = max(rel, key=rel.get)
+    if frame_launches != FS_HYPER_MODULATION or frame_err > TOL_FS_FRAME \
+            or step_launches != {"forward": FS_HYPER_MODULATION,
+                                 "backward": FS_HYPER_MODULATION} \
+            or plain_launches or rel[worst] > TOL_FS_STEP_REL:
+        raise AssertionError(
+            f"hyper route: frame launches {frame_launches}, frame error {frame_err} "
+            f"(tol {TOL_FS_FRAME}); G step launches {step_launches} / plain "
+            f"{plain_launches}, {worst} differs by {rel[worst]} (tol {TOL_FS_STEP_REL})")
+    del gtrainer, snap
+    return {"stream_launches": launches, "frame_launches": frame_launches,
+            "fp32_frame_max_abs": frame_err, "fp32_step_launches": step_launches,
+            "fp32_step_kernels": kernel_step, "fp32_step_plain": plain_step,
+            "fp32_worst_rel": [worst, rel[worst]]}
+
+
+def fs_vid2vid_entry(rs, spade_mod, corr, cn, device="cuda", overrides=None,
+                     raw_hw=FS_RAW_HW):
+    """Phase 12: fs-vid2vid at FaceForensics width: streams through the
+    serving engine, the hyper-SPADE route through the modulation kernel,
+    ``imaginaire_tpu_torch.train.main`` (4 iterations, batch 3, sequence
+    length 4, bf16) and ``imaginaire_tpu_torch.inference.main`` on a
+    seeded packed landmark-video dataset, the inference frames against
+    the engine's stream of the checkpoint."""
+    from imaginaire_tpu_torch import inference, train
+    from imaginaire_tpu_torch.config import Config
+    from imaginaire_tpu_torch.data.paired_few_shot_videos import Dataset
+    from imaginaire_tpu_torch.resilience.integrity import verify_files
+    from imaginaire_tpu_torch.serving.engine import ServingEngine
+    from imaginaire_tpu_torch.trainers.fs_vid2vid import Trainer
+    from imaginaire_tpu_torch.utils import checkpoint as ckpt_lib
+    from imaginaire_tpu_torch.utils.meters import ScalarWriter
+    from imaginaire_tpu_torch.utils.misc import nchw_to_nhwc
+
+    cuda = device == "cuda"
+    torch.backends.cudnn.allow_tf32 = True  # the defaults; the checks pin fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="fs_vid2vid_entry_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        packed = write_face_dataset(tmp, hw=raw_hw)
+        data_s = time.perf_counter() - t0
+        cfg_path = fs_entry_config(tmp, packed, overrides)
+        hyper_path = fs_entry_config(tmp, packed, {**copy.deepcopy(overrides or {}),
+                                                   "gen": {**(overrides or {}).get("gen", {}),
+                                                           **FS_HYPER["gen"]}},
+                                     name="fs_hyper.yaml")
+        cfg = Config(str(cfg_path))
+
+        t0 = time.perf_counter()
+        streams, frames = fs_streams(rs, spade_mod, cfg, device)
+        streams_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hyper = fs_hyper_route(rs, spade_mod, Config(str(hyper_path)), frames["A"], device)
+        hyper_s = time.perf_counter() - t0
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # training through the entry
+        logdir = tmp / "log"
+        saves, before = [], {}
+        save, init_state = Trainer.save_checkpoint, Trainer.init_state
+
+        def timed_save(self, *a, **k):
+            t = time.perf_counter()
+            path = save(self, *a, **k)
+            saves.append(time.perf_counter() - t)
+            return path
+
+        watched = ("weight_generator.fc_spade_e_0_fc0.weight",
+                   "weight_generator.fc_spade_e_3_out.weight",
+                   "flow_network_ref.conv_flow.conv.weight",
+                   "flow_network_ref.down_in.conv.weight")
+
+        def init_and_watch(self, *a, **k):
+            out = init_state(self, *a, **k)
+            before.update({n: self.net_G.get_parameter(n).detach().clone() for n in watched})
+            return out
+
+        import gc
+
+        gc.collect()
+        reset_video_launches(rs, corr, cn)
+        spade_mod.launches = spade_mod.bwd_launches = 0
+        Trainer.save_checkpoint, Trainer.init_state = timed_save, init_and_watch
+        try:
+            with HostClocks(Trainer) as clocks:
+                t0 = time.perf_counter()
+                trainer = train.main(["--config", str(cfg_path), "--logdir", str(logdir),
+                                      "--seed", str(ENTRY_SEED), "--device", device,
+                                      "--max_iter", str(FS_ITERATIONS)])
+                train_s = time.perf_counter() - t0
+        finally:
+            Trainer.save_checkpoint, Trainer.init_state = save, init_state
+        launches = video_launches(rs, corr, cn)
+        launches["spade_modulation"] = spade_mod.launches + spade_mod.bwd_launches
+        want = {k: FS_ITERATIONS * n for k, n in FS_ENTRY_LAUNCHES.items()}
+        want["spade_modulation"] = 0
+        if launches != want or trainer.compute_dtype != torch.bfloat16 \
+                or trainer.sequence_length != FS_SEQ:
+            raise AssertionError(f"fs training entry launches {launches}, expected {want}; "
+                                 f"compute dtype {trainer.compute_dtype}, sequence length "
+                                 f"{trainer.sequence_length}")
+        scalars = [r for r in ScalarWriter(logdir).read() if r["kind"] == "counter"
+                   and r["name"].split("/")[0] in ("gen_update", "dis_update")]
+        names = {r["name"] for r in scalars}
+        bad = [r for r in scalars if not np.isfinite(r["value"])
+               or r["name"].endswith("nonfinite_count")]
+        if bad or not {"gen_update/Flow", "gen_update/Perceptual", "gen_update/GAN",
+                       "gen_update/FeatureMatching", "dis_update/GAN"} <= names:
+            raise AssertionError(f"meters.jsonl: {sorted(names)}, non-finite {bad[:5]}")
+        moved = {n: (trainer.net_G.get_parameter(n).detach() - before[n]).abs().max().item()
+                 for n in watched}
+        if not all(v > 0 for v in moved.values()):
+            raise AssertionError(f"parameters that did not move: {moved}")
+        checkpoint = ckpt_lib.latest_checkpoint_path(str(logdir))
+        integrity = ckpt_lib.read_integrity_sidecar(checkpoint)
+        verify_files(checkpoint, integrity["files"], context=checkpoint)
+        if ckpt_lib.parse_checkpoint_name(checkpoint)[1] != FS_ITERATIONS \
+                or integrity["n_leaves"] != len(trainer.state_tensors()):
+            raise AssertionError(f"checkpoint {checkpoint}: {integrity['n_leaves']} records")
+        timings = {k: [t * 1e3 for t in v] for k, v in trainer.timings.items()}
+
+        # in situ: one fp32 G step on a warp frame (TF32 off), the kernels
+        # against their plain versions
+        torch.backends.cudnn.allow_tf32 = False
+        trainer.compute_dtype = torch.float32
+        data_t = fs_warp_frame(trainer, frames["A"], device)
+        snap = _snapshot(trainer)
+
+        def g_step():
+            out = trainer._step(trainer.net_G, trainer.opt_G,
+                                lambda: trainer.gen_forward(data_t)[0], None, "gen_step")
+            return {k: float(v) for k, v in out.items()}
+
+        reset_video_launches(rs, corr, cn)
+        kernel_step = g_step()
+        step_launches = video_launches(rs, corr, cn)
+        _restore(trainer, snap)
+        reset_video_launches(rs, corr, cn)
+        with plain_kernels():
+            plain_step = g_step()
+        plain_launches = video_launches(rs, corr, cn)
+        torch.backends.cudnn.allow_tf32 = True
+        rel = {k: abs(kernel_step[k] - plain_step[k]) / max(abs(plain_step[k]), 1e-30)
+               for k in plain_step}
+        worst = max(rel, key=rel.get)
+        if step_launches != {"resample2d": 2, "resample2d_bwd": 2, "correlation": 0,
+                             "channelnorm": 0} \
+                or any(plain_launches.values()) or rel[worst] > TOL_FS_STEP_REL:
+            raise AssertionError(f"fp32 G step, kernels vs plain versions: {worst} differs "
+                                 f"by {rel[worst]} (tol {TOL_FS_STEP_REL}); launches "
+                                 f"{step_launches} / {plain_launches}")
+        del trainer, snap, data_t
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # inference through the entry (inference_args: driving sequence 1,
+        # the reference frame 0 of sequence 0), then the engine's stream
+        kept, save_frame = {}, Trainer._save_test_frame
+
+        def keep(self, output_dir, key, t, fake):
+            kept[t] = nchw_to_nhwc(fake).cpu().numpy()
+            return save_frame(self, output_dir, key, t, fake)
+
+        out_dir = tmp / "frames"
+        reset_video_launches(rs, corr, cn)
+        Trainer._save_test_frame = keep
+        try:
+            t0 = time.perf_counter()
+            itrainer = inference.main(["--config", str(cfg_path), "--checkpoint", checkpoint,
+                                       "--output_dir", str(out_dir),
+                                       "--logdir", str(tmp / "inference"),
+                                       "--seed", str(ENTRY_SEED), "--device", device])
+            inference_s = time.perf_counter() - t0
+        finally:
+            Trainer._save_test_frame = save_frame
+        inference_launches = video_launches(rs, corr, cn)
+        written = sorted(str(p.relative_to(out_dir)) for p in out_dir.rglob("*.png"))
+        want_files = [f"seq0001/{t:04d}.png" for t in range(FS_FRAMES)]
+        if written != want_files or inference_launches["resample2d"] != FS_STREAM_RESAMPLE \
+                or not all(np.isfinite(f).all() and np.abs(f).max() <= 1 for f in kept.values()):
+            raise AssertionError(f"inference: written {written}, launches "
+                                 f"{inference_launches}")
+        engine = ServingEngine(itrainer.cfg, trainer=itrainer).initialize()
+        engine.load_weights(checkpoint)
+        test_set = Dataset(itrainer.cfg, is_inference=True, is_test=True)
+        test_set.set_inference_sequence_idx(1, 0, 0)
+        stream = engine.stream(0)
+        stream_diff = []
+        for t in range(FS_FRAMES):
+            item = test_set[t]
+            got = stream.step({"label": item["label"], "ref_images": item["ref_images"][None],
+                               "ref_labels": item["ref_labels"][None]})
+            stream_diff.append(float(np.abs(got - kept[t]).max()))
+        if any(stream_diff):
+            raise AssertionError(f"inference vs the engine's stream: {stream_diff}")
+        del engine, itrainer, stream
+        if cuda:
+            torch.cuda.empty_cache()
+    seq = FS_SEQ
+    kinds = ["first"] + ["later"] * (seq - 1)
+    by_type = {step: {kind: float(np.median([ms for i, ms in enumerate(timings[step])
+                                             if kinds[i % seq] == kind]))
+                      for kind in ("first", "later")}
+               for step in ("dis_step", "gen_step")}
+    median_ms = float(np.median(timings["iteration"]))
+    row = {"sequences": FS_SEQUENCES, "frames": FS_FRAMES, "raw_hw": list(raw_hw),
+           "data_s": data_s, "streams_s": streams_s, "hyper_s": hyper_s,
+           "streams": streams, "hyper": hyper, "train_s": train_s,
+           "iterations": FS_ITERATIONS, "batch": FS_BATCH, "sequence_length": seq,
+           "iteration_ms": timings["iteration"], "median_iteration_ms": median_ms,
+           "frames_per_s": FS_BATCH * seq / (median_ms / 1e3),
+           "step_ms_by_frame": by_type, "data_wait_ms": timings["data_wait"],
+           "host": clocks.table(), "launches": launches, "moved": moved,
+           "checkpoint_bytes": sum(integrity["files"][f]["size"] for f in integrity["files"]),
+           "checkpoint_save_s": saves, "fp32_step_kernels": kernel_step,
+           "fp32_step_plain": plain_step, "fp32_worst_rel": [worst, rel[worst]],
+           "fp32_step_launches": step_launches, "inference_s": inference_s,
+           "inference_launches": inference_launches, "stream_vs_inference": stream_diff,
+           "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2**30 if cuda
+                            else "not measured"),
+           "phase_s": time.perf_counter() - t_phase}
+    phase("fs_vid2vid_entry", **row)
+    return row
+
+
 def one_hot_frame(rng):
     idx = rng.randint(0, V2V_LABELS, (1,) + V2V_HW)
     label = np.zeros((1,) + V2V_HW + (V2V_LABELS,), np.float32)
@@ -2881,9 +3384,11 @@ def main():
         v2v_train = vid2vid_train_entry(rs, corr, cn, workdir=v2v_dir)
         v2v_eval = vid2vid_eval_entry(rs, corr, cn, v2v_dir)
     evaluation = spade_eval_entry(spade_mod)
+    fs = fs_vid2vid_entry(rs, spade_mod, corr, cn)
+    fs_train, fs_hyper = fs["launches"], fs["hyper"]
 
-    def per_call_set(table, dtype):
-        sel = [r for r in table if r["dtype"].startswith(dtype)]
+    def per_call_set(table, dtype, path="spade"):
+        sel = [r for r in table if r["dtype"].startswith(dtype) and r["path"] == path]
         out = {key: sum(r[key] * r["calls"] for r in sel)
                for key in ("ms", "plain_ms", "bound_ms")}
         out["bound_by"] = max(sel, key=lambda r: r["bound_ms"] * r["calls"])["bound_by"]
@@ -2897,12 +3402,23 @@ def main():
         "source": "imaginaire_tpu_torch/csrc/spade_modulation.cu",
         "replaces": "imaginaire_tpu/ops/pallas/spade_modulation_kernel.py:87",
         "launches": main["launches"], "max_abs_err": max_err,
+        # fs-vid2vid (phase 12): the hyper route's stream, its fp32 frame
+        # and G step; the committed config's training (a BatchNorm base: 0)
+        "fs_launches": {"hyper_stream": fs_hyper["stream_launches"]["spade_modulation"],
+                        "hyper_fp32_frame": fs_hyper["frame_launches"],
+                        "hyper_fp32_g_step": fs_hyper["fp32_step_launches"]["forward"],
+                        "train": fs_train["spade_modulation"]},
+        # the hyper route's 12 calls of a batch-1 forward at 512x512, fp32
+        "fs_forward": per_call_set(rows, "float32", "fs"),
         # the 19 calls of one bs-4 generator forward, fp32, n_pairs 1
         **per_forward, "library_ms": None}, {
         "name": "spade_modulation_bwd", "route": "cuda",
         "source": "imaginaire_tpu_torch/csrc/spade_modulation.cu",
         "replaces": "imaginaire_tpu/ops/spade_modulation.py:119",
         "launches": train["launches"]["backward"], "max_abs_err": bwd_err,
+        "fs_launches": {"hyper_fp32_g_step": fs_hyper["fp32_step_launches"]["backward"],
+                        "train": 0},
+        "fs_backward": per_call_set(bwd_rows, "bfloat16", "fs"),
         # the 19 calls of one G step's backward, bf16 (the training path's
         # type), n_pairs 1; max_abs_err is the fp32 checks' worst error
         # over the plain output's max magnitude
@@ -2914,6 +3430,13 @@ def main():
         # launches on the vid2vid inference, evaluation and flow-cache paths
         # (phase 11), counted beside the main path's
         "eval_entry_launches": v2v_eval["launches"]["resample2d"],
+        # fs-vid2vid (phase 12): two 6-frame streams, the hyper stream, 4
+        # training iterations, the fp32 G step, the inference entry
+        "fs_launches": {"streams": sum(fs["streams"]["stream_launches"].values()),
+                        "hyper_stream": fs_hyper["stream_launches"]["resample2d"],
+                        "train": fs_train["resample2d"],
+                        "fp32_g_step": fs["fp32_step_launches"]["resample2d"],
+                        "inference": fs["inference_launches"]["resample2d"]},
         # one warp of the previous (1, 3, 512, 1024) frame, fp32, mixed flow
         **{key: rs_rows[0][key] for key in
            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}, {
@@ -2921,6 +3444,8 @@ def main():
         "source": "imaginaire_tpu_torch/csrc/resample2d.cu",
         "replaces": "imaginaire_tpu/ops/resample2d.py:82",
         "launches": v2v_train["launches"]["resample2d_bwd"], "max_abs_err": rs_bwd_err,
+        "fs_launches": {"train": fs_train["resample2d_bwd"],
+                        "fp32_g_step": fs["fp32_step_launches"]["resample2d_bwd"]},
         # the training warp's backward of (2, 3, 512, 1024) frames, bf16 (the
         # path's type), dflow alone (the path's), mixed flow; max_abs_err is
         # dflow's (0: bit for bit) and the fp32 dx checks' worst over the
@@ -2956,7 +3481,7 @@ def main():
              "modulation_bwd": bwd_rows, "spade_train_path": train,
              "spade_train_entry": entry, "resample2d_bwd": rs_bwd_rows,
              "vid2vid_train_entry": v2v_train, "vid2vid_eval_entry": v2v_eval,
-             "spade_eval_entry": evaluation,
+             "spade_eval_entry": evaluation, "fs_vid2vid_entry": fs,
              "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -4,9 +4,10 @@ The same keys, in the same order, applied jointly to every data type of
 an item: ``resize_smallest_side``, ``resize_h_w``,
 ``random_resize_h_w_aspect``, ``random_scale_limit``,
 ``random_rotate_90``, ``random_crop_h_w``, ``center_crop_h_w`` and
-``horizontal_flip``. ``rotate`` other than 0 and keypoint data types
-raise until a later slice; ``rotate: 0`` is the identity, as in the JAX
-package.
+``horizontal_flip``. ``rotate`` other than 0 raises until a later
+slice; ``rotate: 0`` is the identity, as in the JAX package. Keypoint
+data types ((N, 2+) coordinate arrays, e.g. facial landmarks) are not
+resampled but moved by the same resizes, quarter turns, crop and flip.
 
 Random draws come from an explicit ``random.Random`` (the dataset makes
 one an item), in the JAX package's order: scale, rot90, crop, flip. The
@@ -136,9 +137,7 @@ class Augmentor:
     def __init__(self, aug_cfg, interpolators=None, keypoint_data_types=None):
         self.cfg = dict(aug_cfg or {})
         self.interpolators = dict(interpolators or {})
-        if keypoint_data_types:
-            raise NotImplementedError(
-                "keypoint data types are not in the port yet (ROADMAP.md)")
+        self.keypoint_data_types = list(keypoint_data_types or [])
         if float(self.cfg.get("rotate", 0) or 0):
             raise NotImplementedError(
                 f"augmentations.rotate={self.cfg['rotate']} is not in the "
@@ -166,7 +165,8 @@ class Augmentor:
         """inputs: {data_type: [HWC arrays]}; ``rng``: the item's
         ``random.Random``. Returns (outputs, is_flipped); one draw is
         applied to every type and frame."""
-        first = next(iter(inputs.values()))[0]
+        first = next(v for t, v in inputs.items()
+                     if t not in self.keypoint_data_types)[0]
         original_hw = tuple(first.shape[:2])
         cfg = self.cfg
         ops, (h, w), resize_deterministic = deterministic_resize_chain(cfg, original_hw)
@@ -203,6 +203,9 @@ class Augmentor:
                             "resize_deterministic": resize_deterministic}
         canonical, out = {}, {}
         for data_type, frames in inputs.items():
+            if data_type in self.keypoint_data_types:
+                out[data_type] = [_apply_keypoints(f, ops, original_hw) for f in frames]
+                continue
             interp = self.interpolators.get(data_type)
             if canonical_ok and data_type in self.capture_canonical_types:
                 # the chain in two halves: the output is the same arrays
@@ -213,6 +216,15 @@ class Augmentor:
                 out[data_type] = [self._apply(f, ops, interp) for f in frames]
         self._tls.canonical = canonical
         return out, is_flipped
+
+    def geometry(self):
+        """The last call's geometry as the JAX augmentor exposes it to
+        ``vis::`` ops: (resize_h, resize_w, crop_h, crop_w, original_h,
+        original_w, is_flipped), the resize size being the crop's when
+        there is one."""
+        rec = self.last_record
+        crop_hw = tuple(rec["crop"][2:]) if rec["crop"] else tuple(rec["canonical_hw"])
+        return crop_hw + crop_hw + tuple(rec["original_hw"]) + (rec["hflip"],)
 
     @staticmethod
     def _apply(img, ops, interp):
@@ -229,3 +241,32 @@ class Augmentor:
             elif op == "hflip":
                 img = img[:, ::-1]
         return np.ascontiguousarray(img)
+
+
+def _apply_keypoints(pts, ops, original_hw):
+    """Move (N, 2[+extra]) xy coordinates through the image ops."""
+    if pts is None:
+        return None
+    pts = np.asarray(pts, np.float32).copy()
+    if pts.ndim != 2 or pts.shape[-1] < 2:
+        return pts
+    h, w = original_hw
+    for op, arg in ops:
+        if op == "resize":
+            nh, nw = arg
+            pts[:, 0] *= nw / max(w, 1)
+            pts[:, 1] *= nh / max(h, 1)
+            h, w = nh, nw
+        elif op == "rot90":
+            for _ in range(arg):
+                x, y = pts[:, 0].copy(), pts[:, 1].copy()
+                pts[:, 0], pts[:, 1] = y, w - 1 - x
+                h, w = w, h
+        elif op == "crop":
+            top, left, ch, cw = arg
+            pts[:, 0] -= left
+            pts[:, 1] -= top
+            h, w = ch, cw
+        elif op == "hflip":
+            pts[:, 0] = w - 1 - pts[:, 0]
+    return pts

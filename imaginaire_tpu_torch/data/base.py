@@ -19,12 +19,24 @@ sees the same items an unbroken run sees. (The JAX package draws from
 the global ``random`` module.) Sequence items keep time at dim 0,
 (T, H, W, C); a video dataset that declares ``supports_temporal_stride``
 samples frames ``augmentations.max_time_step`` apart, and any other
-dataset refuses the knob. Pre-, post- and full-data ops are for pose
-data and raise until a later slice.
+dataset refuses the knob.
+
+Data ops, as in the JAX package: per type, ``pre_aug_ops`` before the
+augmentation and ``post_aug_ops`` after it: the builtins ``decode_json``
+and ``to_numpy``, ``module::function`` (a function of the frame list)
+and ``vis::module::function``, which also receives the augmentation's
+geometry and turns keypoints into label maps. The augmented coordinates
+of each ``keypoint_data_types`` type are kept as ``<type>_xy`` (T, N, 2)
+before the post ops run, and come out in the item. ``full_data_ops``
+(``module::function``) then see the whole item; they receive the item's
+``rng`` too. Module paths may name the JAX package: they resolve to
+their twins in the port. ``decode_pkl`` and ``convert::`` ops (pose
+data) are not in the port yet.
 """
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import random
@@ -41,10 +53,17 @@ from imaginaire_tpu_torch.data.backends import (
 )
 
 
-def _refuse_ops(spec, where):
-    if spec not in (None, "None", ""):
-        raise NotImplementedError(
-            f"{where}={spec!r}: data ops are not in the port yet (ROADMAP.md)")
+def _parse_ops(spec):
+    if not spec or spec == "None":
+        return []
+    return [item.strip() for item in str(spec).split(",")
+            if item.strip() and item.strip() != "None"]
+
+
+def _port_function(module, fn_name):
+    from imaginaire_tpu_torch.registry import port_module_name
+
+    return getattr(importlib.import_module(port_module_name(module)), fn_name)
 
 
 class BaseDataset:
@@ -78,6 +97,8 @@ class BaseDataset:
         self.num_channels = {}
         self.use_dont_care = {}
         self.is_mask = {}
+        self.pre_aug_ops = {}
+        self.post_aug_ops = {}
         for data_type in self.cfgdata.input_types:
             (name, info), = data_type.items()
             self.data_types.append(name)
@@ -87,9 +108,14 @@ class BaseDataset:
             self.num_channels[name] = cfg_get(info, "num_channels", None)
             self.use_dont_care[name] = cfg_get(info, "use_dont_care", False)
             self.is_mask[name] = cfg_get(info, "is_mask", False)
-            for key in ("pre_aug_ops", "post_aug_ops"):
-                _refuse_ops(cfg_get(info, key, None), f"{name}.{key}")
-        _refuse_ops(cfg_get(self.cfgdata, "full_data_ops", None), "full_data_ops")
+            self.pre_aug_ops[name] = _parse_ops(cfg_get(info, "pre_aug_ops", None))
+            self.post_aug_ops[name] = _parse_ops(cfg_get(info, "post_aug_ops", None))
+        self.full_data_ops = _parse_ops(cfg_get(self.cfgdata, "full_data_ops", None))
+        self.keypoint_data_types = list(
+            cfg_get(self.cfgdata, "keypoint_data_types", None) or [])
+        for ops in list(self.pre_aug_ops.values()) + list(self.post_aug_ops.values()):
+            for spec in ops:
+                self._resolve_op(spec)  # refuse what the port lacks up front
         # ship (H, W) int index maps and one-hot them on the device
         self.one_hot_on_device = bool(cfg_get(self.cfgdata, "one_hot_on_device", False))
         if self.one_hot_on_device and (
@@ -116,9 +142,8 @@ class BaseDataset:
                                                     self.extensions[t]))
 
         aug_cfg = cfg_get(data_info, "augmentations", None) or {}
-        self.augmentor = Augmentor(
-            aug_cfg, self.interpolators,
-            keypoint_data_types=cfg_get(self.cfgdata, "keypoint_data_types", None))
+        self.augmentor = Augmentor(aug_cfg, self.interpolators,
+                                   keypoint_data_types=self.keypoint_data_types)
         if self.augmentor.max_time_step > 1 and not self.supports_temporal_stride:
             raise ValueError(
                 f"augmentations.max_time_step={self.augmentor.max_time_step} "
@@ -151,20 +176,40 @@ class BaseDataset:
                 for t in self.data_types}
 
     def process_item(self, data, rng):
-        """Joint augmentation (draws from ``rng``) -> normalize / one-hot.
-        Returns {type: (T, H, W, C) float32} and ``is_flipped``."""
+        """Pre-ops -> joint augmentation (draws from ``rng``) -> keypoint
+        stash -> post-ops -> full-data ops -> normalize / one-hot.
+        Returns {type: (T, H, W, C) float32}, the ``<type>_xy`` keypoint
+        stashes and ``is_flipped``."""
         # the /255 is keyed on the source dtype, not on the values
         was_uint8 = {t: len(data[t]) > 0 and getattr(data[t][0], "dtype", None) == np.uint8
                      for t in self.data_types}
+        data = self._apply_ops(data, self.pre_aug_ops)
         data, is_flipped = self.augmentor.perform_augmentation(data, rng)
-        out = {}
+        kp_copies = {}
+        for t in self.keypoint_data_types:
+            frames = data.get(t)
+            if frames:
+                try:
+                    kp_copies[t + "_xy"] = np.stack([np.asarray(f, np.float32)
+                                                     for f in frames])
+                except ValueError:  # ragged keypoint counts: no stash
+                    pass
+        data = self._apply_ops(data, self.post_aug_ops)
+        data.update(kp_copies)
+        for spec in self.full_data_ops:
+            data = _port_function(*spec.split("::"))(self.cfgdata, self.is_inference,
+                                                      data, rng=rng)
+        out = {k: data[k] for k in kp_copies}
         for t in self.data_types:
             frames = []
             for arr in data[t]:
-                arr = np.asarray(arr).astype(np.float32)
+                arr = np.asarray(arr)
+                vis_output = arr.ndim == 3 and t in self.keypoint_data_types
+                arr = arr.astype(np.float32)
                 if self.is_mask[t] or (self.num_channels[t] and arr.ndim == 3
                                        and arr.shape[-1] == 1
-                                       and self.num_channels[t] > 1):
+                                       and self.num_channels[t] > 1
+                                       and not vis_output):
                     if self.one_hot_on_device and self.is_mask[t] \
                             and t in self.input_labels:
                         arr = self._encode_index_map(arr, self.num_channels[t])
@@ -180,6 +225,30 @@ class BaseDataset:
             out[t] = np.stack(frames, axis=0)
         out["is_flipped"] = np.asarray(is_flipped)
         return out
+
+    def _apply_ops(self, data, op_dict):
+        for t, ops in op_dict.items():
+            if t in data:
+                for spec in ops:
+                    data[t] = self._resolve_op(spec)(data[t])
+        return data
+
+    def _resolve_op(self, spec):
+        """A data-op spec -> a function of one type's frame list."""
+        if spec == "decode_json":
+            return lambda frames: [json.loads(f) if isinstance(f, (str, bytes)) else f
+                                   for f in frames]
+        if spec == "to_numpy":
+            return lambda frames: [np.asarray(f) for f in frames]
+        parts = str(spec).split("::")
+        if len(parts) == 2:
+            return _port_function(*parts)
+        if len(parts) == 3 and parts[0] == "vis":
+            fn = _port_function(*parts[1:])
+            return lambda frames: fn(*self.augmentor.geometry(), self.cfgdata, frames)
+        raise NotImplementedError(
+            f"data op {spec!r} is not in the port yet (ROADMAP.md); it has "
+            "decode_json, to_numpy, module::function and vis::module::function")
 
     @staticmethod
     def _encode_index_map(label_map, num_labels):

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from imaginaire_tpu_torch.layers.hyper_ops import per_sample_conv2d
 from imaginaire_tpu_torch.layers.state import cast_param
 from imaginaire_tpu_torch.ops.spade_modulation import spade_modulation
 from imaginaire_tpu_torch.utils.misc import resize_bilinear, resize_nearest
@@ -244,6 +245,8 @@ class SpatiallyAdaptiveNorm(_BaseNormHolder):
                                weight_norm_type=weight_norm_type)
 
         for i, cin in enumerate(cond_dims):
+            if cin is None:  # a condition that never arrives
+                continue
             hidden = cin
             if num_filters > 0:
                 self.add_module(f"mlp_{i}", conv(cin, num_filters))
@@ -283,6 +286,77 @@ class SpatiallyAdaptiveNorm(_BaseNormHolder):
         return y * (1.0 + gamma_sum) + beta_sum
 
 
+class HyperSpatiallyAdaptiveNorm(_BaseNormHolder):
+    """SPADE whose first condition's conv may be a runtime input
+    (fs-vid2vid): ``norm(x, *cond, norm_weights=(w, b))`` with w (B, kh,
+    kw, cin, 2C) predicted per sample turns the first condition into its
+    gamma/beta maps by the per-sample conv (``hyper_ops``); every other
+    condition has its own conv ``gb_{i}`` (after ``mlp_{i}`` and a ReLU
+    when ``num_filters`` > 0), plain convs without a weight norm. The
+    conditions are resized (nearest) to x's size. Unlike SPADE the
+    pairs apply in sequence, ``out = (norm(x) * (1 + g0) + b0) * (1 +
+    g1) + b1 ...``: only the first pair fuses with the instance norm
+    (``ops.spade_modulation``, the CUDA kernel on the card). ``hyper``
+    says that the first condition's weights always arrive, so it has no
+    ``gb_0`` (the JAX layer creates it only when called without them)."""
+
+    def __init__(self, num_features, cond_dims, num_filters=0, kernel_size=3,
+                 base_norm="instance", fused_modulation="auto", hyper=False):
+        super().__init__()
+        from imaginaire_tpu_torch.layers.conv import _WeightNormedConv
+
+        self.num_filters = num_filters
+        self.base_norm = base_norm
+        self.fused_modulation = fused_modulation
+        cond_dims = [cond_dims] if isinstance(cond_dims, int) else list(cond_dims)
+        ks, pad = (kernel_size, kernel_size), (kernel_size // 2,) * 2
+
+        def conv(cin, cout):
+            return _WeightNormedConv(cin, cout, ks, (1, 1), pad, (1, 1))
+
+        for i, cin in enumerate(cond_dims):
+            if cin is None or (i == 0 and hyper):
+                continue
+            hidden = cin
+            if num_filters > 0:
+                self.add_module(f"mlp_{i}", conv(cin, num_filters))
+                hidden = num_filters
+            self.add_module(f"gb_{i}", conv(hidden, 2 * num_features))
+        self._set_base_norm(base_norm, num_features)
+
+    def forward(self, x, *cond_inputs, norm_weights=None):
+        hw = x.shape[2:]
+        pairs = []
+        for i, cond in enumerate(cond_inputs):
+            if cond is None:
+                continue
+            if isinstance(cond, (tuple, list)):
+                raise NotImplementedError(
+                    "masked conditions of the hyper SPADE norm are not in the "
+                    "port yet (ROADMAP.md)")
+            cond = resize_nearest(cond, hw)
+            if i == 0 and norm_weights is not None and norm_weights[0] is not None:
+                affine = per_sample_conv2d(cond, *norm_weights)
+            else:
+                h = cond
+                if self.num_filters > 0:
+                    h = F.relu(getattr(self, f"mlp_{i}")(h))
+                affine = getattr(self, f"gb_{i}")(h)
+            pairs.append(affine.chunk(2, dim=1))
+        start = 0
+        if pairs and _fusable_modulation(self.fused_modulation, self.base_norm,
+                                         x, pairs[:1]):
+            gamma, beta = pairs[0]
+            out = spade_modulation(x.contiguous(), [gamma.contiguous()],
+                                   [beta.contiguous()])
+            start = 1
+        else:
+            out = self.base(x)
+        for gamma, beta in pairs[start:]:
+            out = out * (1.0 + gamma) + beta
+        return out
+
+
 def get_activation_norm_layer(num_features, norm_type, norm_params=None):
     """Norm factory: a module with the ``(x, *cond)`` signature, or None.
     Conditional norms need ``norm_params['cond_dims']``."""
@@ -295,7 +369,7 @@ def get_activation_norm_layer(num_features, norm_type, norm_params=None):
         return BatchNorm(num_features, affine=p.get("affine", True))
     if norm_type == "instance":
         return InstanceNorm(num_features, affine=p.get("affine", True))
-    if norm_type in ("adaptive", "spatially_adaptive") and "cond_dims" not in p:
+    if norm_type in CONDITIONAL_NORMS and "cond_dims" not in p:
         raise ValueError(f"{norm_type} norm needs activation_norm_params."
                          f"cond_dims (the conditioning channels)")
     if norm_type == "adaptive":
@@ -316,5 +390,13 @@ def get_activation_norm_layer(num_features, norm_type, norm_params=None):
             interpolation=p.get("interpolation", "nearest"),
             weight_norm_type=p.get("weight_norm_type", ""),
             fused_modulation=p.get("fused_modulation", "auto"))
+    if norm_type == "hyper_spatially_adaptive":
+        return HyperSpatiallyAdaptiveNorm(
+            num_features, p["cond_dims"],
+            num_filters=p.get("num_filters", 0),
+            kernel_size=p.get("kernel_size", 3),
+            base_norm=p.get("activation_norm_type", "instance"),
+            fused_modulation=p.get("fused_modulation", "auto"),
+            hyper=p.get("hyper", False))
     raise ValueError(f"activation norm {norm_type!r} is not in the port yet "
                      f"(ROADMAP.md)")

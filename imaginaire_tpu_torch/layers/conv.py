@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from imaginaire_tpu_torch.layers import hyper_ops
 from imaginaire_tpu_torch.layers.activation_norm import (
     CONDITIONAL_NORMS,
     get_activation_norm_layer,
@@ -134,6 +135,41 @@ class Conv2dBlock(nn.Module):
         for op in self.order:
             if op == "C":
                 x = self.conv(x)
+            elif op == "N":
+                if self.norm is not None:
+                    x = self.norm(x, *(cond_inputs if self.conditional else ()))
+            else:
+                x = apply_nonlinearity(
+                    x, self.nonlinearity,
+                    cast_param(self, getattr(self, "prelu_alpha", None)))
+        return x
+
+
+class HyperConv2dBlock(Conv2dBlock):
+    """Conv block whose conv kernels may arrive at call time:
+    ``block(x, *cond, conv_weights=(w, b))`` with w (B, kh, kw, cin,
+    cout) runs the per-sample conv (``hyper_ops``, "SAME" padding at the
+    block's stride). The JAX block creates its own ``conv`` only when it
+    is first called without weights, so ``own_conv`` says whether this
+    one has it: a block that always receives weights has no parameters
+    of its own, and ``bridge.py`` finds none to fill."""
+
+    def __init__(self, in_channels, out_channels, kernel_size=3, stride=1,
+                 own_conv=True, **kwargs):
+        super().__init__(in_channels, out_channels, kernel_size=kernel_size,
+                         stride=stride, **kwargs)
+        self.stride = stride if isinstance(stride, int) else stride[0]
+        if not own_conv and "C" in self.order:
+            del self.conv
+
+    def forward(self, x, *cond_inputs, conv_weights=None):
+        for op in self.order:
+            if op == "C":
+                if conv_weights is not None and conv_weights[0] is not None:
+                    x = hyper_ops.per_sample_conv2d(x, *conv_weights,
+                                                    stride=self.stride)
+                else:
+                    x = self.conv(x)
             elif op == "N":
                 if self.norm is not None:
                     x = self.norm(x, *(cond_inputs if self.conditional else ()))

@@ -8,13 +8,22 @@ half of the order without the nonlinearity, keeping the (conditional)
 norm when ``skip_activation_norm``. The JAX block's stride, dilation,
 padding-mode, noise and shortcut-forcing options wait for the families
 that use them.
+
+``HyperRes2dBlock`` (fs-vid2vid) takes per-sample conv kernels and
+hyper-SPADE weights at call time for its two main-branch steps
+(``_HyperConvNorm``); its shortcut is a plain 1x1 conv.
 """
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
-from imaginaire_tpu_torch.layers.conv import Conv2dBlock
+from imaginaire_tpu_torch.layers.activation_norm import get_activation_norm_layer
+from imaginaire_tpu_torch.layers.conv import Conv2dBlock, _norm_channels
+from imaginaire_tpu_torch.layers.hyper_ops import per_sample_conv2d
+from imaginaire_tpu_torch.layers.nonlinearity import apply_nonlinearity, needs_prelu_param
+from imaginaire_tpu_torch.layers.state import cast_param
 
 
 def _split_order(order):
@@ -61,4 +70,85 @@ class Res2dBlock(nn.Module):
     def forward(self, x, *cond_inputs):
         dx = self.conv_1(self.conv_0(x, *cond_inputs), *cond_inputs)
         xs = x if self.conv_s is None else self.conv_s(x, *cond_inputs)
+        return xs + dx
+
+
+class _HyperConvNorm(nn.Module):
+    """One conv + norm + nonlinearity step of ``HyperRes2dBlock``, in
+    ``order`` as written. The conv takes per-sample kernels when they
+    arrive (``conv_weights``, "SAME" padding) and is ``conv`` otherwise,
+    which exists only when ``own_conv``; a ``hyper_spatially_adaptive``
+    norm receives ``norm_weights``, any other norm ignores them."""
+
+    def __init__(self, in_channels, out_channels, kernel_size=3,
+                 weight_norm_type="", activation_norm_type="hyper_spatially_adaptive",
+                 activation_norm_params=None, nonlinearity="leakyrelu",
+                 order="CNA", own_conv=True):
+        super().__init__()
+        self.order = order
+        self.nonlinearity = nonlinearity
+        self.hyper_norm = activation_norm_type == "hyper_spatially_adaptive"
+        self.norm = get_activation_norm_layer(
+            _norm_channels(order, in_channels, out_channels),
+            activation_norm_type, activation_norm_params)
+        if needs_prelu_param(nonlinearity):
+            self.prelu_alpha = nn.Parameter(torch.tensor(0.25))
+        if own_conv:
+            self.conv = Conv2dBlock(in_channels, out_channels, kernel_size,
+                                    weight_norm_type=weight_norm_type, order="C")
+
+    def forward(self, x, *cond_inputs, conv_weights=None, norm_weights=None):
+        for op in self.order:
+            if op == "C":
+                if conv_weights is not None and conv_weights[0] is not None:
+                    x = per_sample_conv2d(x, *conv_weights)
+                else:
+                    x = self.conv(x)
+            elif op == "N":
+                if self.norm is not None:
+                    if self.hyper_norm:
+                        x = self.norm(x, *cond_inputs, norm_weights=norm_weights)
+                    else:
+                        x = self.norm(x, *cond_inputs)
+            elif op == "A":
+                x = apply_nonlinearity(
+                    x, self.nonlinearity,
+                    cast_param(self, getattr(self, "prelu_alpha", None)))
+        return x
+
+
+class HyperRes2dBlock(nn.Module):
+    """Residual block of two ``_HyperConvNorm`` steps whose kernels and
+    norm weights may arrive at call time, plus a learned 1x1 shortcut
+    when the channel counts differ. ``hyper_conv`` / ``hyper_norm`` say
+    that the conv kernels / the first norm condition's weights always
+    arrive, so the steps own no ``conv`` / ``gb_0``."""
+
+    def __init__(self, in_channels, out_channels, kernel_size=3,
+                 weight_norm_type="", activation_norm_type="hyper_spatially_adaptive",
+                 activation_norm_params=None, nonlinearity="leakyrelu",
+                 order="CNACNA", hyper_conv=False, hyper_norm=False):
+        super().__init__()
+        order0, order1 = _split_order(order)
+        hidden = min(in_channels, out_channels)
+        anp = dict(activation_norm_params or {}, hyper=hyper_norm)
+        common = dict(kernel_size=kernel_size, weight_norm_type=weight_norm_type,
+                      activation_norm_type=activation_norm_type,
+                      activation_norm_params=anp, nonlinearity=nonlinearity,
+                      own_conv=not hyper_conv)
+        self.conv_0 = _HyperConvNorm(in_channels, hidden, order=order0, **common)
+        self.conv_1 = _HyperConvNorm(hidden, out_channels, order=order1, **common)
+        self.conv_s = None
+        if in_channels != out_channels:
+            self.conv_s = Conv2dBlock(in_channels, out_channels, kernel_size=1,
+                                      padding=0, weight_norm_type=weight_norm_type,
+                                      order="C")
+
+    def forward(self, x, *cond_inputs, conv_weights=(None, None),
+                norm_weights=(None, None)):
+        dx = self.conv_0(x, *cond_inputs, conv_weights=conv_weights[0],
+                         norm_weights=norm_weights[0])
+        dx = self.conv_1(dx, *cond_inputs, conv_weights=conv_weights[1],
+                         norm_weights=norm_weights[1])
+        xs = x if self.conv_s is None else self.conv_s(x)
         return xs + dx

@@ -8,8 +8,10 @@ t * C + c). The trainer hands each active scale its past real and fake
 frames (``past_stacks``); the current frame is appended here, so the G
 step's gradient reaches it. A generator's raw output
 (``fake_raw_images``) goes through ``net_D`` too, masked by the
-foreground. Few-shot data and ``additional_discriminators`` (pose crops)
-raise. NCHW; frame stacks are (B, T, C, H, W).
+foreground. With few-shot data (fs-vid2vid) the image discriminator's
+condition also holds the reference label and image the generator picked
+(``ref_idx``). ``additional_discriminators`` (pose crops) raise. NCHW;
+frame stacks are (B, T, C, H, W), reference stacks (B, K, C, H, W).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 from torch import nn
 
 from imaginaire_tpu_torch.config import as_attrdict, cfg_get
-from imaginaire_tpu_torch.model_utils.fs_vid2vid import fold_time, get_fg_mask
+from imaginaire_tpu_torch.model_utils.fs_vid2vid import fold_time, get_fg_mask, pick_image
 from imaginaire_tpu_torch.models.discriminators.multires_patch import (
     MultiResPatchDiscriminator,
 )
@@ -47,10 +49,7 @@ class Discriminator(nn.Module):
         super().__init__()
         dis_cfg = as_attrdict(dis_cfg)
         data_cfg = as_attrdict(data_cfg)
-        if "few_shot" in str(cfg_get(data_cfg, "type", "")):
-            raise NotImplementedError(
-                "the few-shot discriminator (reference label and image in "
-                "the input) is not in the port yet (ROADMAP.md)")
+        self.use_few_shot = "few_shot" in str(cfg_get(data_cfg, "type", ""))
         if cfg_get(dis_cfg, "additional_discriminators", None):
             raise NotImplementedError(
                 "dis.additional_discriminators (pose-region crops) are not "
@@ -62,8 +61,8 @@ class Discriminator(nn.Module):
         self.has_fg = cfg_get(data_cfg, "has_foreground", False)
         num_labels = get_paired_input_label_channel_number(data_cfg)
         num_img = get_paired_input_image_channel_number(data_cfg)
-        self.net_D = _make_patch_dis(cfg_get(dis_cfg, "image", None),
-                                     num_labels + num_img)
+        cond = num_labels + (num_labels + num_img if self.use_few_shot else 0)
+        self.net_D = _make_patch_dis(cfg_get(dis_cfg, "image", None), cond + num_img)
         for s in range(self.num_scales):
             self.add_module(f"net_DT{s}", _make_patch_dis(
                 temporal_cfg, self.num_frames_D * num_img))
@@ -88,6 +87,10 @@ class Discriminator(nn.Module):
         label, real_image = data["label"], data["image"]
         if label is not None and label.dim() == 5:
             label = label[:, -1]
+        if self.use_few_shot:
+            ref_idx = net_G_output.get("ref_idx")
+            label = torch.cat([label, pick_image(data["ref_labels"], ref_idx),
+                               pick_image(data["ref_images"], ref_idx)], dim=1)
         fake_image = net_G_output["fake_images"]
         output = {"indv": self._discriminate_image(self.net_D, label,
                                                    real_image, fake_image)}

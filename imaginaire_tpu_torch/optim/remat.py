@@ -49,19 +49,19 @@ def resolve_policy(name, where="remat"):
     return POLICIES[key]
 
 
-def call_block(block, enabled, *args):
-    """``block(*args)``, checkpointed when ``enabled`` and a gradient is
-    being recorded."""
+def call_block(block, enabled, *args, **kwargs):
+    """``block(*args, **kwargs)``, checkpointed when ``enabled`` and a
+    gradient is being recorded."""
     if not (enabled and torch.is_grad_enabled()):
-        return block(*args)
+        return block(*args, **kwargs)
     writes = any(m.update_state for m in stateful_modules(block)) and block.training
     read = [b.clone() for b in state_buffers(block)] if writes else None
     runs = []
 
-    def run(*inputs):
+    def run(*inputs, **kw):
         runs.append(None)
         if len(runs) == 1 or not writes:
-            return block(*inputs)
+            return block(*inputs, **kw)
         # the recompute: the state the first run read, nothing written
         buffers = state_buffers(block)
         kept = [b.clone() for b in buffers]
@@ -70,10 +70,11 @@ def call_block(block, enabled, *args):
                 b.copy_(v)
         try:
             with state_updates(block, False):
-                return block(*inputs)
+                return block(*inputs, **kw)
         finally:
             with torch.no_grad():
                 for b, v in zip(buffers, kept):
                     b.copy_(v)
 
-    return checkpoint(run, *args, use_reentrant=False)
+    return checkpoint(run, *args, use_reentrant=False, **kwargs)
+

@@ -13,10 +13,12 @@ each lane's style noise comes from its own request's seed through a
 ``torch.Generator`` of its own, so a lane's noise does not depend on its
 batch-mates. This replaces the JAX engine's vmap over lanes.
 
-Frame-recurrent families (vid2vid) are served as streams instead:
-``engine.stream(stream_id).step({"label": (1, H, W, C)})`` returns the
-stream's next frame. Each :class:`StreamSession` keeps its own history
-rings on the device, so many streams interleave on one engine.
+Frame-recurrent families (vid2vid, fs-vid2vid) are served as streams
+instead: ``engine.stream(stream_id).step({"label": (1, H, W, C)})``
+returns the stream's next frame; an fs-vid2vid frame also carries its
+reference, ``ref_images`` (1, K, H, W, 3) and ``ref_labels`` (1, K, H,
+W, C). Each :class:`StreamSession` keeps its own history rings on the
+device, so many streams interleave on one engine.
 
 Weights: ``initialize`` draws fresh seeded weights; ``load_weights``
 restores a checkpoint through the trainer's verified path and serves it.
@@ -313,13 +315,24 @@ class ServingEngine:
                     time.perf_counter() - t0) * 1e3
         return report
 
+    def _warm_frame(self, hw):
+        """A zero frame of size ``hw``: a label, and for a few-shot
+        generator a reference of the config's K frames and labels."""
+        net = self.trainer.net_G
+        frame = {"label": np.zeros((1,) + tuple(hw) + (net.num_input_channels,),
+                                   np.float32)}
+        if "few_shot" in str(cfg_get(self.cfg.data, "type", "")):
+            k = int(cfg_get(self.cfg.data, "initial_few_shot_K", 1))
+            frame["ref_labels"] = np.zeros((1, k) + frame["label"].shape[1:], np.float32)
+            frame["ref_images"] = np.zeros((1, k) + tuple(hw) + (net.num_img_channels,),
+                                           np.float32)
+        return frame
+
     def _warm_streams(self):
-        channels = self.trainer.net_G.num_input_channels
         report = {}
         for bucket in self.settings["buckets"]:
             session = StreamSession(self)
-            frame = {"label": np.zeros((1, bucket.height, bucket.width,
-                                        channels), np.float32)}
+            frame = self._warm_frame(bucket.hw)
             times = report[self.label(*bucket.hw, 1, tag="stream")] = []
             for _ in range(self.trainer.num_frames_G):
                 t0 = time.perf_counter()
@@ -416,11 +429,16 @@ class ServingEngine:
         return torch.cat(rows)
 
     def _to_device(self, host):
-        """NHWC host arrays -> tensors on the device, rank-4 ones NCHW."""
+        """NHWC host arrays -> tensors on the device, rank-4 ones NCHW and
+        rank-5 ones (a lane's K reference frames) (B, K, C, H, W)."""
         data = {}
         for name, arr in host.items():
             t = torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
-            data[name] = nhwc_to_nchw(t) if t.dim() == 4 else t
+            if t.dim() == 4:
+                t = nhwc_to_nchw(t)
+            elif t.dim() == 5:
+                t = t.permute(0, 1, 4, 2, 3).contiguous()
+            data[name] = t
         return data
 
     @torch.inference_mode()
@@ -489,8 +507,8 @@ class StreamSession:
     @torch.inference_mode()
     def _advance(self, frame):
         """Generate this stream's next frame from one NHWC host frame
-        (``{"label": (1, H, W, C)}``) and roll the rings; (1, H, W, C)
-        numpy out."""
+        (``{"label": (1, H, W, C)}``, plus the reference for fs-vid2vid)
+        and roll the rings; (1, H, W, C) numpy out."""
         engine = self.engine
         trainer = engine.trainer
         if engine._variables is None:
@@ -515,7 +533,8 @@ class StreamSession:
 
     def step(self, frame):
         """The stream's next frame for ``frame`` = {"label": (1, H, W, C)
-        numpy}; accounted under ``serve/<family>/stream/<H>x<W>/bs1``."""
+        numpy[, "ref_images": (1, K, H, W, 3), "ref_labels": (1, K, H, W,
+        C)]}; accounted under ``serve/<family>/stream/<H>x<W>/bs1``."""
         t0 = time.perf_counter()
         out = self._advance(frame)
         self.engine._account(self.engine.label(*out.shape[1:3], 1, tag="stream"),

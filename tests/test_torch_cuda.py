@@ -31,7 +31,8 @@ reports no spills, and its SASS carries tensor-core (HMMA) and cp.async
 (LDGSTS) instructions. Evaluation: Inception-v3 on the card against its
 CPU run (1e-3 of the features' magnitude), and the averaged copy's
 BatchNorm re-estimation through the modulation kernel against the plain
-composition (1e-4).
+composition (1e-4). fs-vid2vid: the hyper-SPADE generator through the
+modulation kernel's re-reading path against the plain composition (1e-4).
 """
 
 import re
@@ -731,3 +732,55 @@ def test_vid2vid_pinned_sequence_rollout_through_the_kernel_matches_plain(
     for got, want in zip(runs["kernel"][1], runs["plain"][1]):
         assert got.shape == (1, 3, 64, 64) and torch.isfinite(got).all()
         assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_fs_vid2vid_hyper_generator_through_the_modulation_kernel_matches_plain(
+        cuda_device):
+    """fs-vid2vid's generator under the unit config's
+    ``hyper_spatially_adaptive`` norm, at 256x256 frames with a previous
+    frame: its 4 HyperRes2dBlocks fuse the first pair of each of their 2
+    hyper norms (8 launches); the 256x256 planes take the kernel's
+    re-reading (stream) path. Against the same forward with every norm's
+    plain composition (the modulation launched 0 times), fp32: the output
+    conv's maps (before the tanh, which the fresh weights saturate)
+    within 1e-4 of their magnitude."""
+    from imaginaire_tpu_torch.config import Config
+    from imaginaire_tpu_torch.layers.activation_norm import HyperSpatiallyAdaptiveNorm
+    from imaginaire_tpu_torch.models.generators.fs_vid2vid import Generator
+
+    hw = (256, 256)
+    cfg = Config("configs/unit_test/fs_vid2vid.yaml")
+    with torch.device(cuda_device):
+        net = Generator(cfg.gen, cfg.data).eval()
+    init_weights(net, torch.Generator(device=cuda_device).manual_seed(3))
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+
+    def labels(*lead):
+        idx = torch.randint(0, 12, lead + hw, generator=gen, device=cuda_device)
+        return torch.nn.functional.one_hot(idx, 12).movedim(-1, -3).float()
+
+    def images(*lead):
+        return torch.tanh(torch.randn(lead + (3,) + hw, generator=gen, device=cuda_device))
+
+    data = {"label": labels(1), "ref_labels": labels(1, 1), "ref_images": images(1, 1),
+            "prev_labels": labels(1, 1), "prev_images": images(1, 1)}
+    assert spade_mod.modulation_plan(1 * 8, hw[0] * hw[1], torch.float32, 1, True,
+                                     False)["route"] == "stream"
+    norms = [m for m in net.modules() if isinstance(m, HyperSpatiallyAdaptiveNorm)]
+    assert len(norms) == 8
+    maps = []
+    net.conv_img.register_forward_hook(lambda m, i, o: maps.append(o))
+    with torch.no_grad():
+        before = spade_mod.launches
+        fused = net(data)["fake_images"]
+        launched = spade_mod.launches - before
+        for m in norms:
+            m.fused_modulation = "none"
+        before = spade_mod.launches
+        net(data)
+        assert spade_mod.launches == before
+    assert launched == 8
+    assert fused.shape == (1, 3) + hw and torch.isfinite(fused).all()
+    scale = maps[1].abs().max().item()
+    assert scale > 1 and (maps[0] - maps[1]).abs().max().item() <= 1e-4 * scale

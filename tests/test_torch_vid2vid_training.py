@@ -616,6 +616,15 @@ def test_unported_branches_raise_naming_the_roadmap(what, tmp_path):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tflow.FlowLoss(None, warp_ref=True)
         return
+    if what == "few_shot":
+        # fs-vid2vid is ported (tests/test_torch_fs_vid2vid.py); its few-shot
+        # finetune before inference is not
+        from imaginaire_tpu_torch.trainers.fs_vid2vid import Trainer as FsTrainer
+
+        fs = FsTrainer(Config("configs/unit_test/fs_vid2vid.yaml"), device="cpu")
+        with pytest.raises(NotImplementedError, match="finetune.*ROADMAP"):
+            fs.test([], str(tmp_path / "out"), {"finetune": True})
+        return
     if what == "densepose":
         trainer = Trainer(Config(CFG, overrides=dict(CUT, data=dict(
             CUT["data"], for_pose_dataset=dict(), input_labels=["pose_maps-densepose"]))),
@@ -627,8 +636,6 @@ def test_unported_branches_raise_naming_the_roadmap(what, tmp_path):
         "rollout_scan": dict(CUT, trainer=dict(CUT["trainer"], rollout_scan=True)),
         "additional_discriminators": dict(CUT, dis=dict(
             CUT["dis"], additional_discriminators=dict(face=dict(crop_func="a::b")))),
-        "few_shot": dict(CUT, data=dict(CUT["data"],
-                                        type="imaginaire_tpu.data.paired_few_shot_videos")),
     }[what]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(Config(CFG, overrides=overrides), device="cpu", train=True)
