@@ -68,21 +68,23 @@ Phases, one line each; any failure exits non-zero:
    edge maps) written as PNG through the port's encoder into a temporary
    directory and packed by the port's builder; the same config and
    overrides, its splits pointed there (a test split added like the val
-   split). ``imaginaire_tpu_torch.train.main`` trains 6 iterations
+   split). ``imaginaire_tpu_torch.train.main`` trains 1 iteration
    in-process (batch 4, 256x256, bf16, ``remat: blocks``; the launch
    counters are reset just before and read just after: 57 forward and 19
    backward an iteration, plus 19 forward for each generator forward of
    the image snapshots: G, the averaged copy, and the re-estimation of
    the averaged copy's BatchNorm statistics over the training loader's 2
    batches before it), the losses in ``meters.jsonl`` are finite and
-   the checkpoint's files verify; a second ``main`` resumes to 8, every
+   the checkpoint's files verify; a second ``main`` resumes to 2, every
    restored tensor equal to the saved state bit for bit and its first
    batch equal to an unbroken run's; one byte of the newest checkpoint is
    flipped, ``load_latest_verified`` quarantines it and restores the
-   older (mid-epoch) one, and a third ``main`` resumes from that with the
+   older (mid-epoch, iteration 1) one, and a third ``main`` resumes from
+   that with the
    same checks; ``imaginaire_tpu_torch.inference.main`` writes one
-   256x256 PNG a test item through the kernel. The median iteration (the
-   config's ``speed_benchmark``: each step ends in a device sync), images/s
+   256x256 PNG a test item through the kernel. Over the three runs'
+   iterations, the median iteration (the config's ``speed_benchmark``:
+   each step ends in a device sync), images/s
    over the loop's wall time data waits included, the host's data wait,
    the main thread's and the other threads' CPU time and the garbage
    collector's time an iteration, peak memory and the checkpoints' sizes
@@ -176,7 +178,34 @@ Phases, one line each; any failure exits non-zero:
    median iteration, frames/s, D and G step ms by frame type, stream
    frame ms at p50 and p99, peak memory and the checkpoint's bytes and
    save seconds are printed;
-13. a ``kernels`` JSON line, the nvidia-smi line, and the final JSON line.
+13. wc-vid2vid (``wc_vid2vid_entry``, after phase 12): a seeded folder
+   dataset of 2 sequences of 6 frames at 512x1024 (RGB frames and the
+   five label types of the mannequin config as PNG, 35 label channels,
+   and a frame's pickled unprojections: a seeded 100,000-point cloud seen
+   through a z-buffer by a moving camera, under the reference's
+   ``w1024xh512`` key); configs/projects/wc_vid2vid/mannequin/hed_bf16.yaml
+   with the forced overrides (the three ``allow_random_init``: VGG19,
+   FlowNet2, the single-image model; ``ext: png``), its splits and a test
+   split pointed there. ``imaginaire_tpu_torch.train.main`` trains 3
+   iterations in-process (batch 1, sequence length 4, bf16): frames 0 and
+   1 come from the frozen single-image SPADE model with no D or G step,
+   frames 2 and 3 take D and G steps with the splat-rendered guidance
+   (resample2d 14, its backward 2, correlation 2 and channelnorm 12 an
+   iteration, the modulation 0); the losses are finite with a nonzero
+   ``Guidance``, the point cloud grows within each clip, the flow network
+   moves and the checkpoint verifies; one fp32 warp-frame G step with
+   guidance (TF32 off) through the kernels is held within 1e-3 of the
+   same step through their plain versions, and under
+   ``gen.guidance.partial_conv`` (with ``partial`` SPADE norms) one fp32
+   warp-frame forward likewise; ``imaginaire_tpu_torch.inference.main``
+   writes every frame of both sequences (finite, in [-1, 1]; resample2d
+   8), twice, the second run equal to the first bit for bit. The
+   generator's parameters, the median iteration, frames/s, D and G step
+   ms of a warp frame, the takeover's, the host's guidance rendering's
+   and the readback's ms a frame, the loader's wait, peak memory and the
+   checkpoint's bytes and save seconds are printed;
+14. a ``phase_seconds`` line, a ``kernels`` JSON line, the nvidia-smi
+   line, and the final JSON line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -189,6 +218,7 @@ import copy
 import io
 import json
 import os
+import pickle
 import re
 import shutil
 import subprocess
@@ -389,20 +419,22 @@ TOL_TEACHER_REL = 1e-3
 TEACHER_PARAMS = 162_518_834
 
 # the training entry (phase 8): a seeded packed dataset of the fixtures'
-# size (rows, columns) trains 6 iterations, resumes to 8, survives a
-# corrupted checkpoint and feeds inference; snapshots every 7 iterations
-# (7 is mid-epoch: 8 items at batch 4 make 2 iterations an epoch), images
-# every 3 (each image snapshot runs G and its averaged copy once, and
-# first re-estimates the averaged copy's BatchNorm statistics over the
+# size (rows, columns) trains 1 iteration (a checkpoint at iteration 1,
+# mid-epoch: 8 items at batch 4 make 2 iterations an epoch), resumes to 2,
+# survives a corrupted checkpoint (the fallback is iteration 1's) and feeds
+# inference: one checkpoint a run, the fewest that keep every check; an
+# image snapshot every iteration (each runs G and its averaged copy once,
+# and first re-estimates the averaged copy's BatchNorm statistics over the
 # training loader's 2 batches: the COCO-Stuff config's style-code norms
-# stay sync_batch under the instance override)
+# stay sync_batch under the instance override). The loop's numbers are
+# those of the three runs' iterations
 ENTRY_ITEMS = 8
 ENTRY_HW = (300, 320)
 ENTRY_NUM_CLASSES = 183
 ENTRY_SEED = 0
-ENTRY_RUNS = (6, 8)
-ENTRY_OVERRIDES = {"snapshot_save_iter": 7, "logging_iter": 2,
-                   "image_save_iter": 3, "checkpoints_to_keep": 2}
+ENTRY_RUNS = (1, 2)
+ENTRY_OVERRIDES = {"snapshot_save_iter": 1000, "logging_iter": 1,
+                   "image_save_iter": 1, "checkpoints_to_keep": 2}
 # G forwards of one re-estimation: min(the config's 30, the training
 # loader's batches)
 ENTRY_RECAL_BATCHES = min(30, ENTRY_ITEMS // TRAIN_BATCH)
@@ -1117,7 +1149,7 @@ def _snapshot(trainer):
     return ([{k: v.clone() for k, v in n.state_dict().items()} for n in nets],
             [([t.clone() for t in o.state_tensors()], o.count)
              for o in (trainer.opt_G, trainer.opt_D)],
-            {k: v.clone() for k, v in trainer.ema_G.items()},
+            {k: v.clone() for k, v in (trainer.ema_G or {}).items()},
             trainer.num_ema_updates)
 
 
@@ -1130,7 +1162,7 @@ def _restore(trainer, snap):
             for t, v in zip(opt.state_tensors(), tensors):
                 t.copy_(v)
             opt.count = count
-        for k, v in ema.items():
+        for k, v in ema.items():  # no averaged copy: empty
             trainer.ema_G[k].copy_(v)
     trainer.num_ema_updates = n_ema
 
@@ -1420,6 +1452,49 @@ TOL_FS_FRAME = 1e-3
 TOL_FS_STEP_REL = 1e-3
 
 
+# wc-vid2vid (phase 13): configs/projects/wc_vid2vid/mannequin/hed_bf16.yaml
+# with the overrides the repository forces (no VGG19, FlowNet2 or trained
+# single-image weights; PNG frames: the card's machine has no JPEG codec)
+# on a seeded folder dataset of 2 sequences of 6 frames at 512x1024: RGB
+# frames, the config's five label types (DensePose parts 0..24, MegaDepth
+# depth, HED edges, DensePose and OpenPose renders: 35 channels) and, a
+# frame, the pickled unprojections of a seeded cloud of 100,000 points
+# seen through a z-buffer by a camera that moves frame to frame, under the
+# reference's 'w1024xh512' key. Batch 1, sequence length 4: frames 0 and 1
+# come from the single-image takeover (no D or G step), frames 2 and 3 take
+# D and G steps with the rendered guidance. A warp frame warps in its D
+# step's and its G step's generator forward, runs the teacher in its G step
+# (5 warps, 1 correlation, 6 channelnorms) and the warp's backward (dflow:
+# the previous frame is detached). The SPADE norms' base is BatchNorm
+# (``base_norm`` is not read, ROADMAP.md C) and the single-image model's
+# sync_batch: no modulation launch
+WC_CONFIG = REPO / "configs/projects/wc_vid2vid/mannequin/hed_bf16.yaml"
+WC_SEQUENCES, WC_FRAMES, WC_HW, WC_POINTS = 2, 6, (512, 1024), 100_000
+WC_ITERATIONS, WC_SEQ = 3, 4
+WC_LABEL_TYPES = {"seg_maps-densepose": 25, "depth_maps-megadepth": 3, "edge_maps-hed": 1,
+                  "pose_maps-densepose": 3, "pose_maps-openpose": 3}
+WC_FORCED = {"trainer": {"perceptual_loss": {"allow_random_init": True}},
+             "flow_network": {"allow_random_init": True},
+             "gen": {"single_image_model": {"allow_random_init": True}}}
+WC_CADENCES = {"logging_iter": 1, "snapshot_save_iter": 1000, "snapshot_save_epoch": 1000,
+               "image_save_iter": 1000, "trainer": {"speed_benchmark": True}}
+# the partial-conv route: the guidance as an (image, mask) pair, which the
+# SPADE norms turn into gamma/beta through PartialConv2d only when built
+# with ``partial`` (``gen.guidance.partial_conv`` alone drops the mask)
+WC_PARTIAL = {"gen": {"guidance": {"partial_conv": True},
+                      "activation_norm_params": {"partial": True}}}
+WC_WARP_FRAMES = WC_SEQ - 2
+WC_ENTRY_LAUNCHES = {"resample2d": WC_WARP_FRAMES * (2 + 5),
+                     "resample2d_bwd": WC_WARP_FRAMES,
+                     "correlation": WC_WARP_FRAMES, "channelnorm": WC_WARP_FRAMES * 6}
+WC_INFERENCE_RESAMPLE = WC_SEQUENCES * (WC_FRAMES - 2)
+# one fp32 warp-frame G step with guidance (TF32 off) through the kernels
+# against the same step through their plain versions: each loss and the
+# grad norm, relative; the partial-conv route's fp32 warp-frame forward:
+# max-abs
+TOL_WC_STEP_REL = 1e-3
+TOL_WC_PARTIAL = 1e-3
+
 class HostClocks:
     """Per-iteration host accounting of the training loop: wall time,
     the main thread's CPU time, the whole process's CPU time (the loader
@@ -1522,9 +1597,10 @@ def spade_train_entry(spade_mod, device="cuda", overrides=None, items=ENTRY_ITEM
         gc.collect()
         census = {"threads": threading.active_count(), "gc_objects": len(gc.get_objects())}
         spade_mod.launches = spade_mod.bwd_launches = 0
+        clocks = HostClocks(Trainer)  # accumulates over the three runs
         Trainer.save_checkpoint = timed_save
         try:
-            with HostClocks(Trainer) as clocks:
+            with clocks:
                 t0 = time.perf_counter()
                 trainer = train.main(args + ["--max_iter", str(ENTRY_RUNS[0])])
                 train_s = time.perf_counter() - t0
@@ -1549,7 +1625,7 @@ def spade_train_entry(spade_mod, device="cuda", overrides=None, items=ENTRY_ITEM
             raise AssertionError(f"meters.jsonl: {len(scalars)} loss scalars, "
                                  f"non-finite {bad[:5]}")
         saved = {k: v.detach().cpu().clone() for k, v in trainer.state_tensors().items()}
-        timings = {k: list(v) for k, v in trainer.timings.items()}
+        timings = {k: list(v) for k, v in trainer.timings.items()}  # and the resumes
         del trainer
         if cuda:
             torch.cuda.empty_cache()
@@ -1568,15 +1644,22 @@ def spade_train_entry(spade_mod, device="cuda", overrides=None, items=ENTRY_ITEM
         # 2. resume: every restored tensor bit for bit, the next batch
         spade_mod.launches = spade_mod.bwd_launches = 0
         t0 = time.perf_counter()
-        trainer, resume = resumed_run(Trainer, args + ["--max_iter", str(ENTRY_RUNS[1])],
-                                      saved, cfg_path)
+        with clocks:
+            trainer, resume = resumed_run(
+                Trainer, args + ["--max_iter", str(ENTRY_RUNS[1])], saved, cfg_path)
         resume_s = time.perf_counter() - t0
+        for k, v in trainer.timings.items():
+            timings[k] += v
         resume_launches = {"forward": spade_mod.launches,
                            "backward": spade_mod.bwd_launches}
         n = ENTRY_RUNS[1] - ENTRY_RUNS[0]
+        every = ENTRY_OVERRIDES["image_save_iter"]
+        n_images_resume = ENTRY_RUNS[1] // every - ENTRY_RUNS[0] // every
         if resume["iteration"] != ENTRY_RUNS[0] or trainer.current_iteration != ENTRY_RUNS[1] \
-                or resume_launches != {"forward": n * TRAIN_FWD_LAUNCHES,
-                                       "backward": n * TRAIN_BWD_LAUNCHES}:
+                or resume_launches != {
+                    "forward": n * TRAIN_FWD_LAUNCHES + n_images_resume * (
+                        2 + ENTRY_RECAL_BATCHES) * CALLS_PER_FORWARD,
+                    "backward": n * TRAIN_BWD_LAUNCHES}:
             raise AssertionError(f"resume at {resume['iteration']} to "
                                  f"{trainer.current_iteration}, launches {resume_launches}")
         del trainer, saved
@@ -1597,8 +1680,12 @@ def spade_train_entry(spade_mod, device="cuda", overrides=None, items=ENTRY_ITEM
             raise AssertionError(f"corrupted {newest}: restored {restored} after "
                                  f"{fallbacks} fallbacks, expected {older}")
         # ... and the run resumes from it, mid-epoch
-        trainer, fallback_resume = resumed_run(
-            Trainer, args + ["--max_iter", str(ENTRY_RUNS[1])], payload["state"], cfg_path)
+        with clocks:
+            trainer, fallback_resume = resumed_run(
+                Trainer, args + ["--max_iter", str(ENTRY_RUNS[1])], payload["state"],
+                cfg_path)
+        for k, v in trainer.timings.items():
+            timings[k] += v
         if fallback_resume["offset"] == 0 or trainer.current_iteration != ENTRY_RUNS[1]:
             raise AssertionError(f"fallback resume {fallback_resume}")
         del trainer, payload
@@ -1631,17 +1718,19 @@ def spade_train_entry(spade_mod, device="cuda", overrides=None, items=ENTRY_ITEM
                 or not all(np.isfinite(i).all() and np.abs(i).max() <= 1 for i in images):
             raise AssertionError(f"inference: {len(pngs)} PNGs of {shapes}, "
                                  f"{spade_mod.launches} launches")
+    # the three runs' iterations (1, 2 and 2 again)
     ms = {k: [t * 1e3 for t in v] for k, v in timings.items()}
     median_ms = float(np.median(ms["iteration"]))
     # the loop's wall time after the first iteration (kernel build, cuDNN's
-    # picks): each batch's data wait and its iteration, less only the
-    # image snapshots and meter flushes that end_of_iteration runs after
-    # its clock (every 3 and 2 iterations here, far above a real run's)
+    # picks): each batch's data wait (here each the first of its run's
+    # loader) and its iteration, less only the image snapshots and meter
+    # flushes that end_of_iteration runs after its clock
     window_s = sum(ms["data_wait"][1:] + ms["iteration"][1:]) / 1e3
     row = {"items": items, "hw": list(hw), "batch": 4, "data_s": data_s,
-           "train_s": train_s, "iterations": ENTRY_RUNS[0],
+           "train_s": train_s, "iterations": len(ms["iteration"]),
            "iteration_ms": ms["iteration"], "median_iteration_ms": median_ms,
-           "images_per_s": 4 * (ENTRY_RUNS[0] - 1) / window_s, "window_s": window_s,
+           "images_per_s": 4 * (len(ms["iteration"]) - 1) / window_s,
+           "window_s": window_s,
            "step_only_images_per_s": 4 / (median_ms / 1e3),
            "dis_step_ms": ms["dis_step"], "gen_step_ms": ms["gen_step"],
            "data_wait_ms": ms["data_wait"], "loader_wait_ms": ms["loader_wait"],
@@ -2879,6 +2968,362 @@ def fs_vid2vid_entry(rs, spade_mod, corr, cn, device="cuda", overrides=None,
     return row
 
 
+def write_wc_dataset(root, sequences=WC_SEQUENCES, frames=WC_FRAMES, hw=WC_HW,
+                     points=WC_POINTS, seed=ENTRY_SEED):
+    """Phase 13's folder dataset under ``root / "raw"``: seeded RGB frames
+    and the five label types as PNG through the port's encoder, and a
+    frame's unprojections pickled as ``{"w{W}xh{H}": flat [i, j, point,
+    ...]}``: a sequence's cloud of ``points`` points in a box 5-15 units
+    in front of a pinhole camera (focal 0.8 W) that moves 0.08 units
+    right and 0.1 forward a frame, each pixel keeping its nearest point.
+    Returns (the root, the points mapped a frame)."""
+    from imaginaire_tpu_torch.data.png import write_png
+
+    rng = np.random.RandomState(seed)
+    raw = root / "raw"
+    h, w = hw
+    focal = 0.8 * w
+    mapped = []
+    for s_ in range(sequences):
+        seq = f"seq{s_:04d}"
+        cloud = np.stack([rng.uniform(-6, 6, points), rng.uniform(-3, 3, points),
+                          rng.uniform(5, 15, points)], axis=1)
+        for t in range(frames):
+            rel = cloud - np.array([0.08 * t, 0.0, 0.1 * t])
+            u = np.floor(focal * rel[:, 0] / rel[:, 2] + w / 2).astype(np.int64)
+            v = np.floor(focal * rel[:, 1] / rel[:, 2] + h / 2).astype(np.int64)
+            idx = np.nonzero((u >= 0) & (u < w) & (v >= 0) & (v < h))[0]
+            nearest = idx[np.argsort(rel[idx, 2], kind="stable")]
+            _, first = np.unique(v[nearest] * w + u[nearest], return_index=True)
+            seen = nearest[first]
+            rows = np.stack([v[seen], u[seen], seen], axis=1)
+            mapped.append(len(rows))
+            files = {"images": rng.randint(0, 256, hw + (3,)),
+                     "seg_maps-densepose": rng.randint(0, 25, hw),
+                     "depth_maps-megadepth": rng.randint(0, 256, hw + (3,)),
+                     "edge_maps-hed": rng.randint(0, 256, hw),
+                     "pose_maps-densepose": rng.randint(0, 256, hw + (3,)),
+                     "pose_maps-openpose": rng.randint(0, 256, hw + (3,))}
+            for kind, arr in files.items():
+                (raw / kind / seq).mkdir(parents=True, exist_ok=True)
+                write_png(raw / kind / seq / f"{t:05d}.png", arr.astype(np.uint8))
+            (raw / "unprojections" / seq).mkdir(parents=True, exist_ok=True)
+            (raw / "unprojections" / seq / f"{t:05d}.pkl").write_bytes(
+                pickle.dumps({f"w{w}xh{h}": rows.reshape(-1).tolist()}))
+    return raw, mapped
+
+
+def wc_entry_config(root, data_root, overrides=None, name="wc.yaml"):
+    """The mannequin config, its splits (and a test split) pointed at the
+    folder dataset, the forced overrides, PNG frames, the harness's
+    cadences, then ``overrides``, written to ``root / name``. The
+    single-image model's config path stays the committed relative one,
+    found from the repository root."""
+    import yaml
+
+    from imaginaire_tpu_torch.config import load_yaml, recursive_update
+
+    cfg = load_yaml(WC_CONFIG)
+    for split in ("train", "val"):
+        cfg["data"][split]["roots"] = [str(data_root)]
+    cfg["data"]["input_types"][0]["images"]["ext"] = "png"
+    recursive_update(cfg, copy.deepcopy(WC_FORCED))
+    recursive_update(cfg, copy.deepcopy(WC_CADENCES))
+    recursive_update(cfg, copy.deepcopy(overrides or {}))
+    cfg["test_data"] = dict(copy.deepcopy(cfg["data"]), test=copy.deepcopy(cfg["data"]["val"]))
+    path = root / name
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def wc_warp_frame(trainer, data):
+    """Frame 2 of the clip ``data`` as the rollout hands it to a G step: a
+    fresh point cloud colored by the takeover's frames 0 and 1, their
+    history, and the guidance rendered from the cloud."""
+    from imaginaire_tpu_torch.model_utils.fs_vid2vid import concat_frames
+
+    trainer.reset_renderer()
+    prev_labels = prev_images = None
+    for t in range(2):
+        data_t = trainer._get_data_t(data, t, prev_labels, prev_images)
+        fake = trainer._frame_override(data_t)
+        trainer._after_gen_frame(data_t, fake)
+        prev_labels = concat_frames(prev_labels, data_t["label"], trainer.num_frames_G - 1)
+        prev_images = concat_frames(prev_images, fake, trainer.num_frames_G - 1)
+    data_t = trainer._get_data_t(data, 2, prev_labels, prev_images)
+    return {k: v for k, v in data_t.items() if not k.startswith("_")}
+
+
+def wc_partial_route(rs, cfg_path, data_t, device):
+    """The partial-conv route (``WC_PARTIAL``) at the config's full width:
+    one fp32 warp-frame forward (TF32 off, fresh seeded weights) through
+    the resample2d kernel against the same through its plain version."""
+    from imaginaire_tpu_torch.config import Config
+    from imaginaire_tpu_torch.layers.conv import PartialConv2d
+    from imaginaire_tpu_torch.models.generators.wc_vid2vid import Generator
+    from imaginaire_tpu_torch.utils.init_weight import init_weights
+
+    cfg = Config(str(cfg_path), overrides=copy.deepcopy(WC_PARTIAL))
+    with torch.device(device):
+        net = Generator(cfg.gen, cfg.data).eval()
+    init_weights(net, torch.Generator(device=device).manual_seed(13),
+                 cfg.trainer.init.type, cfg.trainer.init.gain)
+    partial = sum(isinstance(m, PartialConv2d) for m in net.modules())
+    data = {k: data_t[k].float() for k in ("label", "prev_labels", "prev_images", "guidance")}
+    runs = {}
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for route in ("kernel", "plain"):
+            rs.launches = 0
+            with torch.no_grad(), (plain_kernels() if route == "plain"
+                                   else contextlib.nullcontext()):
+                runs[route] = (net(data)["fake_images"], rs.launches)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    err = float((runs["kernel"][0] - runs["plain"][0]).abs().max())
+    if partial == 0 or runs["kernel"][1] != 1 or runs["plain"][1] != 0 \
+            or not torch.isfinite(runs["kernel"][0]).all() or err > TOL_WC_PARTIAL:
+        raise AssertionError(f"partial-conv route: {partial} partial convs, launches "
+                             f"{runs['kernel'][1]} / {runs['plain'][1]}, max-abs {err} "
+                             f"(tol {TOL_WC_PARTIAL})")
+    return {"partial_convs": partial, "fp32_max_abs": err,
+            "launches": {route: n for route, (_, n) in runs.items()},
+            "generator_params": sum(p.numel() for p in net.parameters())}
+
+
+def wc_vid2vid_entry(rs, spade_mod, corr, cn, device="cuda", overrides=None, hw=WC_HW,
+                     points=WC_POINTS):
+    """Phase 13: wc-vid2vid at the mannequin config's width through
+    ``imaginaire_tpu_torch.train.main`` (3 iterations, batch 1, sequence
+    length 4, bf16: the single-image takeover, then D and G steps with the
+    splat-rendered guidance) and ``imaginaire_tpu_torch.inference.main``
+    (twice) on a seeded folder dataset with unprojection pickles."""
+    from imaginaire_tpu_torch import inference, train
+    from imaginaire_tpu_torch.resilience.integrity import verify_files
+    from imaginaire_tpu_torch.trainers import wc_vid2vid as wc_trainers
+    from imaginaire_tpu_torch.trainers.wc_vid2vid import Trainer
+    from imaginaire_tpu_torch.utils import checkpoint as ckpt_lib
+    from imaginaire_tpu_torch.utils.meters import ScalarWriter
+
+    cuda = device == "cuda"
+    torch.backends.cudnn.allow_tf32 = True  # the defaults; the checks pin fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="wc_vid2vid_entry_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        raw, mapped = write_wc_dataset(tmp, hw=hw, points=points)
+        data_s = time.perf_counter() - t0
+        cfg_path = wc_entry_config(tmp, raw, overrides)
+
+        # training through the entry
+        logdir = tmp / "log"
+        saves, before, clouds = [], {}, []
+        save, init_state, after = Trainer.save_checkpoint, Trainer.init_state, \
+            Trainer._after_gen_frame
+
+        def timed_save(self, *a, **k):
+            t = time.perf_counter()
+            path = save(self, *a, **k)
+            saves.append(time.perf_counter() - t)
+            return path
+
+        def init_and_watch(self, *a, **k):
+            out = init_state(self, *a, **k)
+            before["w"] = self.net_G.flow_network_temp.conv_flow.conv.weight.detach().clone()
+            return out
+
+        def count_points(self, data_t, fake):
+            after(self, data_t, fake)
+            clouds.append(self._renderer(0).num_points())
+
+        import gc
+
+        gc.collect()
+        reset_video_launches(rs, corr, cn)
+        spade_mod.launches = spade_mod.bwd_launches = 0
+        clock = PartClock({"takeover": (Trainer, "_frame_override"),
+                           "guidance": (wc_trainers, "guidance_tensor"),
+                           "color": (Trainer, "_after_gen_frame")}, cuda)
+        Trainer.save_checkpoint, Trainer.init_state, Trainer._after_gen_frame = \
+            timed_save, init_and_watch, count_points
+        try:
+            with HostClocks(Trainer) as clocks, clock:
+                t0 = time.perf_counter()
+                trainer = train.main(["--config", str(cfg_path), "--logdir", str(logdir),
+                                      "--seed", str(ENTRY_SEED), "--device", device,
+                                      "--max_iter", str(WC_ITERATIONS)])
+                train_s = time.perf_counter() - t0
+        finally:
+            Trainer.save_checkpoint, Trainer.init_state, Trainer._after_gen_frame = \
+                save, init_state, after
+        parts = clock.take()
+        launches = video_launches(rs, corr, cn)
+        launches["spade_modulation"] = spade_mod.launches + spade_mod.bwd_launches
+        want = {k: WC_ITERATIONS * n for k, n in WC_ENTRY_LAUNCHES.items()}
+        want["spade_modulation"] = 0
+        per_clip = [clouds[i:i + WC_SEQ] for i in range(0, len(clouds), WC_SEQ)]
+        if launches != want or trainer.compute_dtype != torch.bfloat16 \
+                or trainer.sequence_length != WC_SEQ \
+                or parts[1]["takeover"] != WC_ITERATIONS * WC_SEQ \
+                or len(per_clip) != WC_ITERATIONS \
+                or not all(c == sorted(c) and c[-1] > c[0] > 0 for c in per_clip):
+            raise AssertionError(f"wc training entry launches {launches}, expected {want}; "
+                                 f"compute dtype {trainer.compute_dtype}, sequence length "
+                                 f"{trainer.sequence_length}, calls {parts[1]}, the point "
+                                 f"clouds a clip {per_clip}")
+        scalars = [r for r in ScalarWriter(logdir).read() if r["kind"] == "counter"
+                   and r["name"].split("/")[0] in ("gen_update", "dis_update")]
+        names = {r["name"] for r in scalars}
+        bad = [r for r in scalars if not np.isfinite(r["value"])
+               or r["name"].endswith("nonfinite_count")]
+        guidance_loss = [r["value"] for r in scalars if r["name"] == "gen_update/Guidance"]
+        if bad or not guidance_loss or not all(v > 0 for v in guidance_loss) \
+                or not {"gen_update/Flow_L1", "gen_update/Flow_Warp", "gen_update/Flow_Mask",
+                        "gen_update/Perceptual", "dis_update/GAN"} <= names:
+            raise AssertionError(f"meters.jsonl: {sorted(names)}, non-finite {bad[:5]}, "
+                                 f"Guidance {guidance_loss}")
+        flow_moved = (trainer.net_G.flow_network_temp.conv_flow.conv.weight.detach()
+                      - before["w"]).abs().max().item()
+        if not flow_moved > 0:
+            raise AssertionError("the generator's flow network did not move")
+        checkpoint = ckpt_lib.latest_checkpoint_path(str(logdir))
+        integrity = ckpt_lib.read_integrity_sidecar(checkpoint)
+        verify_files(checkpoint, integrity["files"], context=checkpoint)
+        if ckpt_lib.parse_checkpoint_name(checkpoint)[1] != WC_ITERATIONS \
+                or integrity["n_leaves"] != len(trainer.state_tensors()):
+            raise AssertionError(f"checkpoint {checkpoint}: {integrity['n_leaves']} records")
+        timings = {k: [t * 1e3 for t in v] for k, v in trainer.timings.items()}
+        params = {"generator": sum(p.numel() for p in trainer.net_G.parameters()),
+                  "single_image": sum(p.numel()
+                                      for p in trainer.single_image_model.parameters())}
+
+        # in situ: one fp32 warp-frame G step with guidance (TF32 off), the
+        # kernels against their plain versions
+        from imaginaire_tpu_torch.data import get_train_and_val_dataloader
+
+        loader, _ = get_train_and_val_dataloader(trainer.cfg, seed=ENTRY_SEED)
+        loader.dataset.set_sequence_length(WC_SEQ)
+        data = trainer.start_of_iteration(next(iter(loader)), WC_ITERATIONS)
+        torch.backends.cudnn.allow_tf32 = False
+        trainer.compute_dtype = torch.float32
+        data = {k: v.float() if torch.is_tensor(v) and v.is_floating_point() else v
+                for k, v in data.items()}
+        data_t = wc_warp_frame(trainer, data)
+        guidance_valid = float(data_t["guidance"][:, 3].mean())
+        snap = _snapshot(trainer)
+
+        def g_step():
+            out = trainer._step(trainer.net_G, trainer.opt_G,
+                                lambda: trainer.gen_forward(data_t)[0], None, "gen_step")
+            return {k: float(v) for k, v in out.items()}
+
+        reset_video_launches(rs, corr, cn)
+        kernel_step = g_step()
+        step_launches = video_launches(rs, corr, cn)
+        _restore(trainer, snap)
+        reset_video_launches(rs, corr, cn)
+        with plain_kernels():
+            plain_step = g_step()
+        plain_launches = video_launches(rs, corr, cn)
+        torch.backends.cudnn.allow_tf32 = True
+        rel = {k: abs(kernel_step[k] - plain_step[k]) / max(abs(plain_step[k]), 1e-30)
+               for k in plain_step}
+        worst = max(rel, key=rel.get)
+        if step_launches != {"resample2d": 6, "resample2d_bwd": 1, "correlation": 1,
+                             "channelnorm": 6} \
+                or any(plain_launches.values()) or rel[worst] > TOL_WC_STEP_REL \
+                or not kernel_step.get("Guidance", 0) > 0 or not guidance_valid > 0:
+            raise AssertionError(
+                f"fp32 warp-frame G step with guidance (valid share {guidance_valid}), "
+                f"kernels vs plain versions: {worst} differs by {rel[worst]} (tol "
+                f"{TOL_WC_STEP_REL}); launches {step_launches} / {plain_launches}")
+        del trainer, snap, data
+        if cuda:
+            torch.cuda.empty_cache()
+        partial = wc_partial_route(rs, cfg_path, data_t, device)
+        del data_t
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # inference through the entry, twice: every frame of both sequences
+        runs = []
+        save_frame = Trainer._save_test_frame
+        for i in range(2):
+            kept = {}
+
+            def keep(self, output_dir, key, t, fake):
+                kept[(key, t)] = fake.detach().float().cpu().clone()
+                return save_frame(self, output_dir, key, t, fake)
+
+            out_dir = tmp / f"frames{i}"
+            reset_video_launches(rs, corr, cn)
+            Trainer._save_test_frame = keep
+            try:
+                t0 = time.perf_counter()
+                inference.main(["--config", str(cfg_path), "--checkpoint", checkpoint,
+                                "--output_dir", str(out_dir),
+                                "--logdir", str(tmp / f"inference{i}"),
+                                "--seed", str(ENTRY_SEED), "--device", device])
+                seconds = time.perf_counter() - t0
+            finally:
+                Trainer._save_test_frame = save_frame
+            written = sorted(str(p.relative_to(out_dir)) for p in out_dir.rglob("*.png"))
+            runs.append((kept, seconds, video_launches(rs, corr, cn), written))
+            if cuda:
+                torch.cuda.empty_cache()
+        want_files = [f"seq{s_:04d}/{t:04d}.png" for s_ in range(WC_SEQUENCES)
+                      for t in range(WC_FRAMES)]
+        frames0, frames1 = runs[0][0], runs[1][0]
+        same = sorted(frames0) == sorted(frames1) and all(
+            torch.equal(frames0[k], frames1[k]) for k in frames0)
+        for kept, _, inf_launches, written in runs:
+            if written != want_files or inf_launches != {
+                    "resample2d": WC_INFERENCE_RESAMPLE, "resample2d_bwd": 0,
+                    "correlation": 0, "channelnorm": 0} \
+                    or not all(torch.isfinite(f).all() and f.abs().max() <= 1
+                               for f in kept.values()):
+                raise AssertionError(f"inference: written {written}, launches "
+                                     f"{inf_launches}")
+        if not same:
+            raise AssertionError("two inference runs of one checkpoint differ")
+    seq = WC_SEQ
+    by_type = {step: {"warp": float(np.median(timings[step]))}
+               for step in ("dis_step", "gen_step")}
+    median_ms = float(np.median(timings["iteration"]))
+    seconds, calls = parts
+    row = {"sequences": WC_SEQUENCES, "frames": WC_FRAMES, "hw": list(hw),
+           "points": points, "mapped_points_per_frame": [min(mapped), max(mapped)],
+           "data_s": data_s, "generator_params": params["generator"],
+           "single_image_params": params["single_image"], "train_s": train_s,
+           "iterations": WC_ITERATIONS, "batch": 1, "sequence_length": seq,
+           "iteration_ms": timings["iteration"], "median_iteration_ms": median_ms,
+           "frames_per_s": seq / (median_ms / 1e3), "step_ms_by_frame": by_type,
+           "steps_a_clip": WC_WARP_FRAMES,  # the takeover frames take no step
+           "takeover_ms": 1e3 * seconds["takeover"] / calls["takeover"],
+           "guidance_render_ms": 1e3 * seconds["guidance"] / calls["guidance"],
+           "color_readback_ms": 1e3 * seconds["color"] / calls["color"],
+           "data_wait_ms": timings["data_wait"], "loader_wait_ms": timings["loader_wait"],
+           "host": clocks.table(), "launches": launches,
+           "launches_per_iteration": WC_ENTRY_LAUNCHES, "points_a_clip": per_clip,
+           "guidance_loss": guidance_loss, "flow_net_moved": flow_moved,
+           "checkpoint_bytes": sum(integrity["files"][f]["size"] for f in integrity["files"]),
+           "checkpoint_save_s": saves, "guidance_valid_share": guidance_valid,
+           "fp32_step_kernels": kernel_step, "fp32_step_plain": plain_step,
+           "fp32_worst_rel": [worst, rel[worst]], "fp32_step_launches": step_launches,
+           "partial_conv": partial, "inference_s": [r[1] for r in runs],
+           "inference_launches": runs[0][2], "inference_frames": len(frames0),
+           "inference_bit_equal": same,
+           "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2**30 if cuda
+                            else "not measured"),
+           "phase_s": time.perf_counter() - t_phase,
+           "nvidia_smi": nvidia_smi() if cuda else "not measured"}
+    phase("wc_vid2vid_entry", **row)
+    return row
+
+
 def one_hot_frame(rng):
     idx = rng.randint(0, V2V_LABELS, (1,) + V2V_HW)
     label = np.zeros((1,) + V2V_HW + (V2V_LABELS,), np.float32)
@@ -3369,23 +3814,33 @@ def main():
         if not table or spilled:
             raise AssertionError(f"{name} kernels spill registers: {spilled}")
 
-    rows, bwd_rows, max_err, bwd_err = check_modulation(spade_mod)
-    rs_rows, rs_err = check_resample(rs)
-    rs_bwd_rows, rs_bwd_err = check_resample_bwd(rs)
-    corr_rows, corr_err = check_correlation(corr)
-    cn_rows, cn_err = check_channelnorm(cn)
-    main = main_path(spade_mod)
-    v2v = vid2vid_path(rs, spade_mod)
+    seconds = {"build": build_s}
+
+    def timed(fn, *a, **k):
+        t = time.perf_counter()
+        out = fn(*a, **k)
+        seconds[fn.__name__] = time.perf_counter() - t
+        return out
+
+    rows, bwd_rows, max_err, bwd_err = timed(check_modulation, spade_mod)
+    rs_rows, rs_err = timed(check_resample, rs)
+    rs_bwd_rows, rs_bwd_err = timed(check_resample_bwd, rs)
+    corr_rows, corr_err = timed(check_correlation, corr)
+    cn_rows, cn_err = timed(check_channelnorm, cn)
+    main = timed(main_path, spade_mod)
+    v2v = timed(vid2vid_path, rs, spade_mod)
     rs_rows[0]["flows"]["vid2vid"] = v2v["resample2d_path_flow"]
-    teacher = teacher_path(corr, cn, rs)
-    train = spade_train_path(spade_mod)
-    entry = spade_train_entry(spade_mod)
+    teacher = timed(teacher_path, corr, cn, rs)
+    train = timed(spade_train_path, spade_mod)
+    entry = timed(spade_train_entry, spade_mod)
     with tempfile.TemporaryDirectory(prefix="vid2vid_entry_") as v2v_dir:
-        v2v_train = vid2vid_train_entry(rs, corr, cn, workdir=v2v_dir)
-        v2v_eval = vid2vid_eval_entry(rs, corr, cn, v2v_dir)
-    evaluation = spade_eval_entry(spade_mod)
-    fs = fs_vid2vid_entry(rs, spade_mod, corr, cn)
+        v2v_train = timed(vid2vid_train_entry, rs, corr, cn, workdir=v2v_dir)
+        v2v_eval = timed(vid2vid_eval_entry, rs, corr, cn, v2v_dir)
+    evaluation = timed(spade_eval_entry, spade_mod)
+    fs = timed(fs_vid2vid_entry, rs, spade_mod, corr, cn)
     fs_train, fs_hyper = fs["launches"], fs["hyper"]
+    wc = timed(wc_vid2vid_entry, rs, spade_mod, corr, cn)
+    phase("phase_seconds", **seconds, total=time.perf_counter() - t0)
 
     def per_call_set(table, dtype, path="spade"):
         sel = [r for r in table if r["dtype"].startswith(dtype) and r["path"] == path]
@@ -3408,6 +3863,8 @@ def main():
                         "hyper_fp32_frame": fs_hyper["frame_launches"],
                         "hyper_fp32_g_step": fs_hyper["fp32_step_launches"]["forward"],
                         "train": fs_train["spade_modulation"]},
+        # wc-vid2vid (phase 13): BatchNorm bases everywhere
+        "wc_launches": {"train": wc["launches"]["spade_modulation"]},
         # the hyper route's 12 calls of a batch-1 forward at 512x512, fp32
         "fs_forward": per_call_set(rows, "float32", "fs"),
         # the 19 calls of one bs-4 generator forward, fp32, n_pairs 1
@@ -3418,6 +3875,7 @@ def main():
         "launches": train["launches"]["backward"], "max_abs_err": bwd_err,
         "fs_launches": {"hyper_fp32_g_step": fs_hyper["fp32_step_launches"]["backward"],
                         "train": 0},
+        "wc_launches": {"train": 0},
         "fs_backward": per_call_set(bwd_rows, "bfloat16", "fs"),
         # the 19 calls of one G step's backward, bf16 (the training path's
         # type), n_pairs 1; max_abs_err is the fp32 checks' worst error
@@ -3437,6 +3895,12 @@ def main():
                         "train": fs_train["resample2d"],
                         "fp32_g_step": fs["fp32_step_launches"]["resample2d"],
                         "inference": fs["inference_launches"]["resample2d"]},
+        # wc-vid2vid (phase 13): 3 training iterations, the fp32 G step,
+        # the partial-conv forward, one inference entry of 12 frames
+        "wc_launches": {"train": wc["launches"]["resample2d"],
+                        "fp32_g_step": wc["fp32_step_launches"]["resample2d"],
+                        "partial_conv_forward": wc["partial_conv"]["launches"]["kernel"],
+                        "inference": wc["inference_launches"]["resample2d"]},
         # one warp of the previous (1, 3, 512, 1024) frame, fp32, mixed flow
         **{key: rs_rows[0][key] for key in
            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}, {
@@ -3446,6 +3910,8 @@ def main():
         "launches": v2v_train["launches"]["resample2d_bwd"], "max_abs_err": rs_bwd_err,
         "fs_launches": {"train": fs_train["resample2d_bwd"],
                         "fp32_g_step": fs["fp32_step_launches"]["resample2d_bwd"]},
+        "wc_launches": {"train": wc["launches"]["resample2d_bwd"],
+                        "fp32_g_step": wc["fp32_step_launches"]["resample2d_bwd"]},
         # the training warp's backward of (2, 3, 512, 1024) frames, bf16 (the
         # path's type), dflow alone (the path's), mixed flow; max_abs_err is
         # dflow's (0: bit for bit) and the fp32 dx checks' worst over the
@@ -3458,6 +3924,8 @@ def main():
         "replaces": "imaginaire_tpu/ops/pallas/correlation_kernel.py:76",
         "launches": teacher["launches"]["correlation"], "max_abs_err": corr_err,
         "eval_entry_launches": v2v_eval["launches"]["correlation"],
+        "wc_launches": {"train": wc["launches"]["correlation"],
+                        "fp32_g_step": wc["fp32_step_launches"]["correlation"]},
         # the one call of a FlowNet2 forward of one frame pair, fp32
         **{key: corr_rows[0][key] for key in
            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}, {
@@ -3466,6 +3934,8 @@ def main():
         "replaces": "imaginaire_tpu/ops/pallas/channelnorm_kernel.py:32",
         "launches": teacher["launches"]["channelnorm"], "max_abs_err": cn_err,
         "eval_entry_launches": v2v_eval["launches"]["channelnorm"],
+        "wc_launches": {"train": wc["launches"]["channelnorm"],
+                        "fp32_g_step": wc["fp32_step_launches"]["channelnorm"]},
         # the 6 calls (4 of 3 channels, 2 of 2) of a FlowNet2 forward of
         # one frame pair, fp32
         **{key: sum(r[key] * r["calls"] for r in cn_per_pair)
@@ -3482,6 +3952,7 @@ def main():
              "spade_train_entry": entry, "resample2d_bwd": rs_bwd_rows,
              "vid2vid_train_entry": v2v_train, "vid2vid_eval_entry": v2v_eval,
              "spade_eval_entry": evaluation, "fs_vid2vid_entry": fs,
+             "wc_vid2vid_entry": wc,
              "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)

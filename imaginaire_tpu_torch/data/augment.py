@@ -8,6 +8,8 @@ an item: ``resize_smallest_side``, ``resize_h_w``,
 slice; ``rotate: 0`` is the identity, as in the JAX package. Keypoint
 data types ((N, 2+) coordinate arrays, e.g. facial landmarks) are not
 resampled but moved by the same resizes, quarter turns, crop and flip.
+Types whose frames are not arrays (pickled unprojections) pass through
+untouched.
 
 Random draws come from an explicit ``random.Random`` (the dataset makes
 one an item), in the JAX package's order: scale, rot90, crop, flip. The
@@ -166,7 +168,7 @@ class Augmentor:
         ``random.Random``. Returns (outputs, is_flipped); one draw is
         applied to every type and frame."""
         first = next(v for t, v in inputs.items()
-                     if t not in self.keypoint_data_types)[0]
+                     if t not in self.keypoint_data_types and _spatial(v))[0]
         original_hw = tuple(first.shape[:2])
         cfg = self.cfg
         ops, (h, w), resize_deterministic = deterministic_resize_chain(cfg, original_hw)
@@ -206,6 +208,11 @@ class Augmentor:
             if data_type in self.keypoint_data_types:
                 out[data_type] = [_apply_keypoints(f, ops, original_hw) for f in frames]
                 continue
+            if not _spatial(frames):
+                # non-spatial payloads (pickled unprojections) pass through
+                # untouched; a post-augmentation op decodes them
+                out[data_type] = frames
+                continue
             interp = self.interpolators.get(data_type)
             if canonical_ok and data_type in self.capture_canonical_types:
                 # the chain in two halves: the output is the same arrays
@@ -241,6 +248,11 @@ class Augmentor:
             elif op == "hflip":
                 img = img[:, ::-1]
         return np.ascontiguousarray(img)
+
+
+def _spatial(frames):
+    """Whether a type's frames are arrays (images, maps), not payloads."""
+    return not frames or hasattr(frames[0], "shape")
 
 
 def _apply_keypoints(pts, ops, original_hw):

@@ -13,9 +13,11 @@ the other:
 Decoding: ``npy`` through numpy; PNG through the port's own codec
 (``data/png.py``); JPEG and any other image format through OpenCV,
 imported only there, and an error naming the file and the codec where
-OpenCV is absent; ``json`` / ``txt`` payloads come back as text. The
-pickle and video payloads of the JAX package's pose and native video
-datasets, and the LMDB backend, are not in the port.
+OpenCV is absent; ``json`` / ``txt`` payloads come back as text and
+``pkl`` / ``pickle`` payloads as their raw bytes, which a data op
+unpickles (``decode_pkl``, wc-vid2vid's ``decode_unprojections``). The
+video payloads of the JAX package's native video datasets, and the LMDB
+backend, are not in the port.
 """
 
 from __future__ import annotations
@@ -54,9 +56,12 @@ def _decode_with_opencv(buf, name, codec):
 
 def decode_image(buf, ext, name="<buffer>"):
     """Bytes of one stored image -> an HWC array; a text payload (keypoint
-    JSON) -> its string, which a ``decode_json`` data op parses."""
+    JSON) -> its string, which a ``decode_json`` data op parses; a pickle
+    -> its bytes, unpickled by a data op."""
     if ext in ("json", "txt"):
         return buf.decode("utf-8")
+    if ext in ("pkl", "pickle"):
+        return buf
     if ext == "npy":
         return np.load(BytesIO(buf))
     if buf.startswith(PNG_SIGNATURE):

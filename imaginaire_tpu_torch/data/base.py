@@ -29,9 +29,12 @@ geometry and turns keypoints into label maps. The augmented coordinates
 of each ``keypoint_data_types`` type are kept as ``<type>_xy`` (T, N, 2)
 before the post ops run, and come out in the item. ``full_data_ops``
 (``module::function``) then see the whole item; they receive the item's
-``rng`` too. Module paths may name the JAX package: they resolve to
-their twins in the port. ``decode_pkl`` and ``convert::`` ops (pose
-data) are not in the port yet.
+``rng`` too. ``decode_pkl`` unpickles each frame, and
+``convert::module::function`` is a function of the frame list that may
+return a structured payload in its place (wc-vid2vid's
+``decode_unprojections``: ``{resolution: (T, N, 3)}``), which passes
+through to the item as it is. Module paths may name the JAX package:
+they resolve to their twins in the port.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from __future__ import annotations
 import importlib
 import json
 import os
+import pickle
 import random
 
 import numpy as np
@@ -201,6 +205,11 @@ class BaseDataset:
                                                       data, rng=rng)
         out = {k: data[k] for k in kp_copies}
         for t in self.data_types:
+            if not isinstance(data[t], (list, tuple)):
+                # a convert:: op replaced the frame list with a structured
+                # payload: the item carries it as it is
+                out[t] = data[t]
+                continue
             frames = []
             for arr in data[t]:
                 arr = np.asarray(arr)
@@ -238,6 +247,8 @@ class BaseDataset:
         if spec == "decode_json":
             return lambda frames: [json.loads(f) if isinstance(f, (str, bytes)) else f
                                    for f in frames]
+        if spec == "decode_pkl":
+            return lambda frames: [pickle.loads(f) for f in frames]
         if spec == "to_numpy":
             return lambda frames: [np.asarray(f) for f in frames]
         parts = str(spec).split("::")
@@ -246,9 +257,12 @@ class BaseDataset:
         if len(parts) == 3 and parts[0] == "vis":
             fn = _port_function(*parts[1:])
             return lambda frames: fn(*self.augmentor.geometry(), self.cfgdata, frames)
+        if len(parts) == 3 and parts[0] == "convert":
+            return _port_function(*parts[1:])
         raise NotImplementedError(
             f"data op {spec!r} is not in the port yet (ROADMAP.md); it has "
-            "decode_json, to_numpy, module::function and vis::module::function")
+            "decode_json, decode_pkl, to_numpy, module::function, "
+            "vis::module::function and convert::module::function")
 
     @staticmethod
     def _encode_index_map(label_map, num_labels):

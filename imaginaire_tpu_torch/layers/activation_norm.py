@@ -32,14 +32,15 @@ from imaginaire_tpu_torch.utils.misc import resize_bilinear, resize_nearest
 CONDITIONAL_NORMS = ("adaptive", "spatially_adaptive", "hyper_spatially_adaptive")
 
 
-def _fusable_modulation(impl, base_norm, x, pairs):
+def _fusable_modulation(impl, base_norm, x, pairs, masked=False):
     """Whether the SPADE epilogue can route through the fused
-    ``ops.spade_modulation`` op: instance-norm statistics only and full-
-    spatial gamma/beta maps. ``none``, ``off`` and ``unfused`` keep the
-    composition; any other value fuses."""
+    ``ops.spade_modulation`` op: instance-norm statistics only, full-
+    spatial gamma/beta maps, and no condition through a partial conv
+    (``masked``). ``none``, ``off`` and ``unfused`` keep the composition;
+    any other value fuses."""
     if impl in ("", "none", "off", "unfused", None):
         return False
-    if base_norm != "instance" or x.dim() != 4 or not pairs:
+    if masked or base_norm != "instance" or x.dim() != 4 or not pairs:
         return False
     return all(g.shape == x.shape == b.shape for g, b in pairs)
 
@@ -220,7 +221,14 @@ class SpatiallyAdaptiveNorm(_BaseNormHolder):
     through a small conv MLP, and contributes additive spatial gamma/beta
     maps: ``out = norm(x) * (1 + sum gamma_i) + sum beta_i``. With an
     instance base norm the epilogue runs as one fused op (the CUDA kernel
-    on the card)."""
+    on the card).
+
+    A condition may arrive as an (image, mask) pair (wc-vid2vid's
+    guidance); its entry in ``cond_dims`` is then the pair of their
+    channel counts. With ``partial`` its ``mlp_{i}`` is a ``PartialConv2d``
+    that reads the mask (one channel), and the layer never fuses, as the
+    JAX layer does; without ``partial`` the mask is dropped and the image
+    goes through the plain conv."""
 
     def __init__(self, num_features, cond_dims, num_filters=128,
                  kernel_size=3, base_norm="sync_batch",
@@ -228,11 +236,9 @@ class SpatiallyAdaptiveNorm(_BaseNormHolder):
                  interpolation="nearest", weight_norm_type="",
                  fused_modulation="auto"):
         super().__init__()
-        from imaginaire_tpu_torch.layers.conv import Conv2dBlock
+        from imaginaire_tpu_torch.layers.conv import Conv2dBlock, PartialConv2d
 
-        if partial:
-            raise NotImplementedError("the partial-conv (masked) SPADE path "
-                                      "is not in the port yet (ROADMAP.md)")
+        self.partial = partial
         self.num_filters = num_filters
         self.separate_projection = separate_projection
         self.interpolation = interpolation
@@ -247,8 +253,18 @@ class SpatiallyAdaptiveNorm(_BaseNormHolder):
         for i, cin in enumerate(cond_dims):
             if cin is None:  # a condition that never arrives
                 continue
+            masked = isinstance(cin, (tuple, list))
+            if masked:
+                cin, mask_channels = cin
+                if partial and (num_filters <= 0 or mask_channels != 1):
+                    raise ValueError(
+                        "a partial-conv SPADE condition needs num_filters > 0 and "
+                        f"a one-channel mask, got {num_filters} and {mask_channels}")
             hidden = cin
-            if num_filters > 0:
+            if masked and partial:
+                self.add_module(f"mlp_{i}", PartialConv2d(cin, num_filters, kernel_size))
+                hidden = num_filters
+            elif num_filters > 0:
                 self.add_module(f"mlp_{i}", conv(cin, num_filters))
                 hidden = num_filters
             if separate_projection:
@@ -261,19 +277,31 @@ class SpatiallyAdaptiveNorm(_BaseNormHolder):
     def forward(self, x, *cond_inputs):
         hw = x.shape[2:]
         pairs = []
+        masked = False
         for i, cond in enumerate(cond_inputs):
             if cond is None:
                 continue
+            mask = None
+            if isinstance(cond, (tuple, list)):
+                cond, mask = cond
             cond = _resize(cond, hw, self.interpolation)
-            hidden = (F.relu(getattr(self, f"mlp_{i}")(cond))
-                      if self.num_filters > 0 else cond)
+            if self.partial and mask is not None:
+                hidden, _ = getattr(self, f"mlp_{i}")(
+                    cond, _resize(mask, hw, self.interpolation))
+                hidden = F.relu(hidden)
+                masked = True
+            elif self.num_filters > 0:
+                hidden = F.relu(getattr(self, f"mlp_{i}")(cond))
+            else:
+                hidden = cond
             if self.separate_projection:
                 gamma = getattr(self, f"gamma_{i}")(hidden)
                 beta = getattr(self, f"beta_{i}")(hidden)
             else:
                 gamma, beta = getattr(self, f"gb_{i}")(hidden).chunk(2, dim=1)
             pairs.append((gamma, beta))
-        if _fusable_modulation(self.fused_modulation, self.base_norm, x, pairs):
+        if _fusable_modulation(self.fused_modulation, self.base_norm, x, pairs,
+                               masked=masked):
             # a shared projection's chunks are strided views; the kernel
             # takes contiguous NCHW
             return spade_modulation(x.contiguous(), [g.contiguous() for g, _ in pairs],

@@ -6,7 +6,8 @@ arranged by ``order`` ('CNA', 'NAC', ...). Conditional norms (AdaIN,
 SPADE) receive their conditioning through extra positional call args:
 ``block(x, *cond_inputs)``. NCHW tensors, OIHW kernels. Blocks are built
 with their channel counts; the norm's channel count follows the order
-(the input's when N comes before C, else the output's).
+(the input's when N comes before C, else the output's). ``PartialConv2d``
+is the mask-aware conv of wc-vid2vid's partial SPADE branch.
 """
 
 from __future__ import annotations
@@ -178,6 +179,38 @@ class HyperConv2dBlock(Conv2dBlock):
                     x, self.nonlinearity,
                     cast_param(self, getattr(self, "prelu_alpha", None)))
         return x
+
+
+class PartialConv2d(nn.Module):
+    """Mask-aware convolution (partial convolution), stride 1: ``conv(x *
+    mask)`` rescaled by the window's size over its count of valid pixels,
+    plus the bias, zero where the window holds none. ``mask`` has one
+    channel (None: all valid). Returns (out, the window-valid mask). Zero
+    padding of (k - 1) // 2 each side; no weight norm. Plain ``F.conv2d``:
+    no Pallas kernel computes it in the JAX package."""
+
+    def __init__(self, in_channels, out_channels, kernel_size=3):
+        super().__init__()
+        self.kernel_size = _pair(kernel_size)
+        self.padding = tuple((k - 1) // 2 for k in self.kernel_size)
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
+                                               *self.kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    def forward(self, x, mask=None):
+        if mask is None:
+            mask = torch.ones((x.shape[0], 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                              device=x.device)
+        ones = torch.ones((1, 1) + self.kernel_size, dtype=x.dtype, device=x.device)
+        mask_sum = F.conv2d(mask, ones, None, 1, self.padding)
+        out = F.conv2d(x * mask, cast_param(self, self.weight).to(x.dtype), None, 1,
+                       self.padding)
+        valid = mask_sum > 0
+        win_size = float(self.kernel_size[0] * self.kernel_size[1])
+        ratio = torch.where(valid, win_size / torch.clamp_min(mask_sum, 1e-8),
+                            torch.zeros_like(mask_sum))
+        bias = cast_param(self, self.bias).to(out.dtype).view(1, -1, 1, 1)
+        return (out * ratio + bias) * valid, valid.to(x.dtype)
 
 
 class LinearBlock(nn.Module):

@@ -205,11 +205,12 @@ class Generator(nn.Module):
                     cfg_get(msc, "embed", None) or emb_cfg, img_in)
                 img_dims = self.img_prev_embedding.out_channels
 
-        # main up branch: one block per scale, index i = scale i
+        # main up branch: one block per scale, index i = scale i, built
+        # with the conditions it will receive
         for i in range(self.num_layers + 1):
-            cond = [label_dims[scale(i)]]
-            if self.spade_combine and i < self.num_multi_spade_layers:
-                cond.append(img_dims[scale(i)])
+            cond = self._up_layer_conds(
+                gen_cfg, i, label_dims[scale(i)],
+                img_dims[scale(i)] if img_dims is not None else None)
             self.add_module(f"up_{i}", res_block(nf(i + 1), nf(i), cond))
         self.conv_img = Conv2dBlock(nf(0), self.num_img_channels, ks,
                                     padding=padding, nonlinearity="leakyrelu",
@@ -240,6 +241,33 @@ class Generator(nn.Module):
                 self.num_frames_G, remat=remat)
 
     # ------------------------------------------------------------- helpers
+
+    def _up_layer_conds(self, gen_cfg, i, label_dim, img_dim):
+        """The channel counts of the conditions ``up_{i}`` receives, in
+        order: the label's, then the warped frame's in the multi-SPADE
+        layers. The JAX package creates each condition's SPADE convs when
+        it first arrives; the port builds them here, so a family that
+        adds conditions (wc-vid2vid's guidance) extends this list."""
+        cond = [label_dim]
+        if self.spade_combine and i < self.num_multi_spade_layers:
+            cond.append(img_dim)
+        return cond
+
+    def _layer_conds(self, i, j, cond_maps_now, cond_maps_img, data):
+        """The conditions of up-layer ``i`` (embedding scale ``j``) in the
+        order ``_up_layer_conds`` built them: the label's, then, on a warp
+        frame (``cond_maps_img`` not None), the warped frame's in the
+        multi-SPADE layers."""
+        cond_maps = list(cond_maps_now[j])
+        if cond_maps_img is not None and i < self.num_multi_spade_layers:
+            cond_maps += cond_maps_img[j]
+        return cond_maps
+
+    def _one_up_layer(self, x, cond_maps, i):
+        """Up-layer ``i``'s SPADE block, then a 2x upsample but at the
+        last."""
+        x = self._block(f"up_{i}", x, *cond_maps)
+        return upsample_2x(x) if i != 0 else x
 
     def _block(self, name, x, *cond):
         """SPADE residual block ``name``, checkpointed under ``gen.remat``."""
@@ -303,15 +331,12 @@ class Generator(nn.Module):
         cond_maps_now = self.get_cond_maps(
             label, getattr(self, "label_embedding", None))
 
-        flow = mask = img_warp = None
-        warp_prev = False
+        flow = mask = img_warp = cond_maps_img = None
         if img_prev is None:
             x_img = self._first_frame_trunk(data, cond_maps_now)
         else:
             x_img = self._prev_frame_trunk(label_prev, img_prev, cond_maps_now)
-            warp_prev = (self.has_flow
-                         and label_prev.shape[1] == self.num_frames_G - 1)
-            if warp_prev:
+            if self.has_flow and label_prev.shape[1] == self.num_frames_G - 1:
                 flow, mask, img_warp = self._flow_warp(label, label_prev,
                                                        img_prev)
                 cond_maps_img = self.get_cond_maps(
@@ -320,12 +345,8 @@ class Generator(nn.Module):
 
         for i in range(self.num_downsamples_img, -1, -1):
             j = min(i, self.num_downsamples_embed)
-            cond_maps = list(cond_maps_now[j])
-            if warp_prev and i < self.num_multi_spade_layers:
-                cond_maps += cond_maps_img[j]
-            x_img = self._block(f"up_{i}", x_img, *cond_maps)
-            if i != 0:
-                x_img = upsample_2x(x_img)
+            x_img = self._one_up_layer(
+                x_img, self._layer_conds(i, j, cond_maps_now, cond_maps_img, data), i)
 
         return {"fake_images": torch.tanh(self.conv_img(x_img)),
                 "fake_flow_maps": flow, "fake_occlusion_masks": mask,

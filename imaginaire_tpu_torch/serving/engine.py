@@ -495,6 +495,11 @@ class StreamSession:
             raise ServingError(
                 f"family {engine.family!r} has no frame-recurrent trainer "
                 f"(_get_data_t); streaming sessions need the vid2vid family")
+        if not getattr(engine.trainer, "serves_streams", True):
+            raise ServingError(
+                f"family {engine.family!r} needs per-frame hooks that a stream "
+                "does not run (wc-vid2vid's takeover and point-cloud renderer); "
+                "its streams are not in the port yet (ROADMAP.md)")
         self.engine = engine
         self.history = max(int(engine.trainer.num_frames_G) - 1, 1)
         self.reset()

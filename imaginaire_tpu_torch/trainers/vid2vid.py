@@ -27,12 +27,19 @@ The sequence-length curriculum (``_start_of_epoch``): one frame until
 the dataset's longest sequence; the dataset (``train_data_loader``) is
 told each new length before the epoch's loader starts reading ahead.
 
+Two per-frame hooks let a family change the rollout, as in the JAX
+trainer: ``_frame_override(data_t)`` may return a frame in place of G's
+(wc-vid2vid's single-image takeover); such a frame takes no D or G step
+and stays out of the temporal discriminator's rings, but feeds the
+history rings. ``_after_gen_frame(data_t, fake)`` sees every frame once
+it exists (wc-vid2vid colors its point cloud there). Keys of a frame's
+data that start with ``_`` hold host objects for the hooks and never
+enter a step or a forward.
+
 Not ported: the whole-rollout scan (``trainer.rollout_scan`` raises) and
 the pipelined dispatch (``trainer.pipeline``, which the JAX package
 defines as bit-identical to the sequential loop: the port runs the
-sequential loop and says so once), the per-frame hooks of wc-vid2vid
-(``_frame_override``, ``_after_gen_frame``: ROADMAP.md A.6) and
-DensePose preprocessing (A.4).
+sequential loop and says so once), and DensePose preprocessing (A.4).
 
 Video inference is frame-recurrent: each frame conditions on the
 trainer's own previous outputs, which ``_generate_frame`` keeps in
@@ -360,23 +367,27 @@ class Trainer(BaseTrainer):
         d_hist, g_hist = [], []
         for t in range(seq_len):
             data_t = self._get_data_t(data, t, prev_labels, prev_images)
-            data_t["past_stacks"] = self._past_stacks(past_real, past_fake)
-            d_hist.append(self._step(self.net_D, self.opt_D,
-                                     lambda: self.dis_forward(data_t),
-                                     self.clip_grad_norm_D, "dis_step"))
-            held = {}
+            fake = self._frame_override(data_t)
+            if fake is None:
+                step_data = _step_data(data_t)
+                step_data["past_stacks"] = self._past_stacks(past_real, past_fake)
+                d_hist.append(self._step(self.net_D, self.opt_D,
+                                         lambda: self.dis_forward(step_data),
+                                         self.clip_grad_norm_D, "dis_step"))
+                held = {}
 
-            def g_forward():
-                losses, out = self.gen_forward(data_t)
-                held["fake"] = out["fake_images"].detach()
-                return losses
+                def g_forward():
+                    losses, out = self.gen_forward(step_data)
+                    held["fake"] = out["fake_images"].detach()
+                    return losses
 
-            g_hist.append(self._step(self.net_G, self.opt_G, g_forward,
-                                     self.clip_grad_norm_G, "gen_step"))
-            fake = held["fake"]
-            if self.num_temporal_scales > 0:
-                past_real = concat_frames(past_real, data_t["image"], max_prev)
-                past_fake = concat_frames(past_fake, fake, max_prev)
+                g_hist.append(self._step(self.net_G, self.opt_G, g_forward,
+                                         self.clip_grad_norm_G, "gen_step"))
+                fake = held["fake"]
+                if self.num_temporal_scales > 0:
+                    past_real = concat_frames(past_real, data_t["image"], max_prev)
+                    past_fake = concat_frames(past_fake, fake, max_prev)
+            self._after_gen_frame(data_t, fake)
             prev_labels = concat_frames(prev_labels, data_t["label"],
                                         self.num_frames_G - 1)
             prev_images = concat_frames(prev_images, fake, self.num_frames_G - 1)
@@ -464,7 +475,9 @@ class Trainer(BaseTrainer):
         fake = None
         for t in range(seq_len):
             data_t = self._get_data_t(data, t, prev_labels, prev_images)
-            fake = self._apply_G(params, data_t)["fake_images"]
+            fake = self._frame_override(data_t)
+            if fake is None:
+                fake = self._apply_G(params, data_t)["fake_images"]
             prev_labels = concat_frames(prev_labels, data_t["label"],
                                         self.num_frames_G - 1)
             prev_images = concat_frames(prev_images, fake, self.num_frames_G - 1)
@@ -477,8 +490,19 @@ class Trainer(BaseTrainer):
 
     def _apply_G(self, params, data_t):
         """The generator's output dict for one frame under ``params``
-        (``inference_params()``)."""
-        return functional_call(self.net_G, params, (data_t,), strict=True)
+        (``inference_params()``); the hooks' ``_`` keys stay out."""
+        return functional_call(self.net_G, params, (_step_data(data_t),), strict=True)
+
+    def _frame_override(self, data_t):
+        """A frame to use in place of G's for ``data_t``, or None (G runs).
+        An override frame takes no D or G step and stays out of the
+        temporal discriminator's rings; it feeds the history rings.
+        Default: None."""
+        return None
+
+    def _after_gen_frame(self, data_t, fake):
+        """Called with each frame of a rollout once it exists (G's or an
+        override). Default: nothing."""
 
     def reset(self):
         """Start a new test sequence: forget the rollout history. (The JAX
@@ -494,7 +518,10 @@ class Trainer(BaseTrainer):
         ``inference_params()`` and advance the history rings."""
         data_t = self._get_data_t(data, t, self._test_prev_labels,
                                   self._test_prev_images)
-        fake = self._apply_G(self.inference_params(), data_t)["fake_images"]
+        fake = self._frame_override(data_t)
+        if fake is None:
+            fake = self._apply_G(self.inference_params(), data_t)["fake_images"]
+        self._after_gen_frame(data_t, fake)
         self._test_prev_labels = concat_frames(
             self._test_prev_labels, data_t["label"], self.num_frames_G - 1)
         self._test_prev_images = concat_frames(
@@ -583,7 +610,7 @@ class Trainer(BaseTrainer):
         C) windows) or NCHW tensors. Call ``reset()`` at each sequence
         start."""
         data = self._to_device(self._start_of_iteration(numeric_only(dict(data)), -1))
-        data = {k: v.to(self.device) for k, v in data.items() if torch.is_tensor(v)}
+        data = {k: v.to(self.device) if torch.is_tensor(v) else v for k, v in data.items()}
         return {"fake_images": self._generate_frame(data, 0)}
 
     # ----------------------------------------------------------- evaluation
@@ -649,6 +676,11 @@ class Trainer(BaseTrainer):
             lambda: get_video_activations(frame_loader, "images", "fake_images", None,
                                           extractor, sample_size=sample_size))
         return act_real, act_fake
+
+
+def _step_data(data_t):
+    """A frame's data without the hooks' host-side ``_`` keys."""
+    return {k: v for k, v in data_t.items() if not k.startswith("_")}
 
 
 def _mean_losses(hist):

@@ -784,3 +784,52 @@ def test_fs_vid2vid_hyper_generator_through_the_modulation_kernel_matches_plain(
     assert fused.shape == (1, 3) + hw and torch.isfinite(fused).all()
     scale = maps[1].abs().max().item()
     assert scale > 1 and (maps[0] - maps[1]).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_wc_vid2vid_partial_conv_generator_through_the_warp_kernel_matches_plain(
+        cuda_device):
+    """wc-vid2vid's generator under ``gen.guidance.partial_conv`` (the
+    guidance an (image, mask) pair through ``PartialConv2d`` in partial
+    SPADE norms) on a warp frame of the unit config at 64x64: one
+    resample2d launch, the same frame through the plain warp launching
+    none, within 1e-5 (fp32, TF32 off)."""
+    from imaginaire_tpu_torch.config import Config
+    from imaginaire_tpu_torch.layers.conv import PartialConv2d
+    from imaginaire_tpu_torch.model_utils import fs_vid2vid
+    from imaginaire_tpu_torch.models.generators.wc_vid2vid import Generator
+
+    cfg = Config(str(UNIT_CONFIG.parent / "wc_vid2vid.yaml"), overrides={"gen": {
+        "guidance": {"partial_conv": True},
+        "activation_norm_params": {"partial": True, "num_filters": 4, "kernel_size": 3}}})
+    with torch.device(cuda_device):
+        net = Generator(cfg.gen, cfg.data).eval()
+    init_weights(net, torch.Generator(device=cuda_device).manual_seed(5), gain=1.0)
+    assert any(isinstance(m, PartialConv2d) for m in net.modules())
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+
+    def labels(*lead):
+        idx = torch.randint(0, 12, lead + (64, 64), generator=gen, device=cuda_device)
+        return torch.nn.functional.one_hot(idx, 12).movedim(-1, -3).float()
+
+    mask = (torch.rand((1, 1, 64, 64), generator=gen, device=cuda_device) < 0.5).float()
+    colors = torch.tanh(torch.randn((1, 3, 64, 64), generator=gen, device=cuda_device))
+    data = {"label": labels(1), "prev_labels": labels(1, 2),
+            "prev_images": torch.tanh(torch.randn((1, 2, 3, 64, 64), generator=gen,
+                                                  device=cuda_device)),
+            "guidance": torch.cat([colors * mask, mask], dim=1)}
+    runs = {}
+    for route in ("kernel", "plain"):
+        warp = fs_vid2vid.resample2d
+        if route == "plain":
+            fs_vid2vid.resample2d = rs.resample2d_plain
+        before = rs.launches
+        try:
+            with torch.no_grad():
+                runs[route] = (net(data)["fake_images"], rs.launches - before)
+        finally:
+            fs_vid2vid.resample2d = warp
+    assert runs["kernel"][1] == 1 and runs["plain"][1] == 0
+    got, want = runs["kernel"][0], runs["plain"][0]
+    assert got.shape == (1, 3, 64, 64) and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 1e-5

@@ -22,6 +22,7 @@ decoded bytes through the same integer resize: exact in practice).
 
 import copy
 import json
+import pickle
 import random
 
 import numpy as np
@@ -41,6 +42,7 @@ from imaginaire_tpu_torch.data.backends import (
 )
 from imaginaire_tpu_torch.data.paired_few_shot_videos import Dataset
 from imaginaire_tpu_torch.model_utils import fs_vid2vid as tfs
+from imaginaire_tpu_torch.model_utils import wc_vid2vid as twc
 from imaginaire_tpu_torch.utils.visualization import face as tface
 
 CFG = "configs/projects/fs_vid2vid/faceForensics/bf16.yaml"
@@ -186,6 +188,11 @@ def test_face_edge_maps_match_jax(upper):
 
 @pytest.mark.parametrize("what", ["decode_pkl", "convert", "distance_transform"])
 def test_unported_data_ops_raise_naming_the_roadmap(what):
+    """``add_distance_transform`` and an op of a prefix the port lacks
+    raise naming the roadmap; ``decode_pkl`` and ``convert::`` ops, which
+    wc-vid2vid's unprojections brought into the port, resolve (the first
+    unpickles each frame, the second is the port's twin of the named
+    function)."""
     _, tcfg = configs()
     if what == "distance_transform":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -193,7 +200,21 @@ def test_unported_data_ops_raise_naming_the_roadmap(what):
                 8, 8, 8, 8, 8, 8, False,
                 {"for_face_dataset": {"add_distance_transform": True}}, landmarks()[None])
         return
-    op = "decode_pkl" if what == "decode_pkl" else "convert::a.b::c"
+    if what == "decode_pkl":
+        op = "decode_pkl"
+        frames = [pickle.dumps({"a": [1, 2]}), pickle.dumps({"b": 3})]
+        want = [{"a": [1, 2]}, {"b": 3}]
+    else:
+        op = "convert::imaginaire_tpu.model_utils.wc_vid2vid::decode_unprojections"
+        frames = [pickle.dumps({"8x8": [1, 2, 3]})]
+        want = None
     tcfg.data.input_types[1][LM]["pre_aug_ops"] = op
+    fn = Dataset(tcfg)._resolve_op(op)
+    if want is None:
+        assert fn is twc.decode_unprojections
+        assert fn(frames)["8x8"].tolist() == [[[1, 2, 3], [1, 1, 1]]]
+    else:
+        assert fn(frames) == want
+    tcfg.data.input_types[1][LM]["pre_aug_ops"] = "other::a.b::c"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Dataset(tcfg)
