@@ -204,7 +204,31 @@ Phases, one line each; any failure exits non-zero:
    ms of a warp frame, the takeover's, the host's guidance rendering's
    and the readback's ms a frame, the loader's wait, peak memory and the
    checkpoint's bytes and save seconds are printed;
-14. a ``phase_seconds`` line, a ``kernels`` JSON line, the nvidia-smi
+14. pix2pixHD (``pix2pixHD_entry``, after phase 13): a seeded packed
+   dataset of 4 training and 2 validation items at 512x1024 (RGB images,
+   35-class seg maps and 16-bit instance maps with Cityscapes ids: stuff
+   below 1000, things label x 1000 + k, neighbouring cells of one label
+   one id apart) written as PNG through the port's encoder;
+   configs/projects/pix2pixHD/cityscapes/bf16.yaml with
+   ``trainer.perceptual_loss.allow_random_init`` (no VGG19 weights),
+   ``max_iter`` 2 and a checkpoint at iteration 2, its splits and a test
+   split pointed there. ``imaginaire_tpu_torch.train.main`` trains 2
+   iterations in-process (batch 2, 512x1024 crops, bf16; the generator
+   182,589,507 parameters, D 3,156,482); the edges each bf16 step reads
+   equal ``get_edges`` of its int32 ids; the losses (GAN, feature
+   matching, perceptual) are finite and the checkpoint verifies;
+   ``imaginaire_tpu_torch.inference.main`` writes one 512x1024 PNG a
+   validation item from a verified load of it (finite, in [-1, 1]). Then
+   the encoder path of configs/unit_test/pix2pixHD.yaml with PNG images
+   on a seeded 128x128 folder dataset: 2 iterations, and the checkpoint
+   carries nonzero ``cluster_centers`` from the port's K-means. No kernel
+   runs: the launch counters are reset just before and read just after
+   each run, and every count must be 0. D and G step ms, iteration ms,
+   the first iteration apart from the warm ones and the warm iterations'
+   images/s, the data wait, peak memory, the checkpoint's bytes and save
+   seconds, the inference and K-means seconds and the phase's seconds
+   are printed;
+15. a ``phase_seconds`` line, a ``kernels`` JSON line, the nvidia-smi
    line, and the final JSON line.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -1494,6 +1518,29 @@ WC_INFERENCE_RESAMPLE = WC_SEQUENCES * (WC_FRAMES - 2)
 # max-abs
 TOL_WC_STEP_REL = 1e-3
 TOL_WC_PARTIAL = 1e-3
+
+# pix2pixHD (phase 14): configs/projects/pix2pixHD/cityscapes/bf16.yaml with
+# the overrides the repository forces (no VGG19 weights) and the phase's
+# cadences (2 iterations, a checkpoint at the second) on a seeded packed
+# dataset of 4 training and 2 validation items at 512x1024: RGB images,
+# 35-class seg maps and 16-bit instance maps with Cityscapes ids (stuff
+# below 1000, things label x 1000 + k, horizontal neighbours of one label
+# one id apart). Batch 2, bf16. Plain instance norms: no kernel of the
+# port runs. Then the encoder path, small: the unit config with PNG images
+# (the card's machine has no JPEG codec) on a seeded folder dataset of 2
+# items at 128x128 whose 16-bit instance maps hold four quadrant instances
+# of labels 1-8, 2 iterations, a checkpoint with clustered centers
+P2P_CONFIG = REPO / "configs/projects/pix2pixHD/cityscapes/bf16.yaml"
+P2P_UNIT = REPO / "configs/unit_test/pix2pixHD.yaml"
+P2P_TRAIN_ITEMS, P2P_VAL_ITEMS, P2P_HW, P2P_LABELS = 4, 2, (512, 1024), 35
+P2P_ITERATIONS = 2
+P2P_THINGS = range(24, 34)  # Cityscapes' thing labels: person .. bicycle
+P2P_FORCED = {"trainer": {"perceptual_loss": {"allow_random_init": True}},
+              "max_iter": P2P_ITERATIONS, "snapshot_save_iter": P2P_ITERATIONS}
+P2P_CADENCES = {"logging_iter": 1, "snapshot_save_epoch": 1000, "image_save_iter": 1000,
+                "trainer": {"speed_benchmark": True}}
+P2P_G_PARAMS, P2P_D_PARAMS = 182_589_507, 3_156_482
+P2P_ENC_ITEMS, P2P_ENC_HW = 2, (128, 128)
 
 class HostClocks:
     """Per-iteration host accounting of the training loop: wall time,
@@ -3324,6 +3371,312 @@ def wc_vid2vid_entry(rs, spade_mod, corr, cn, device="cuda", overrides=None, hw=
     return row
 
 
+def write_cityscapes_dataset(root, n_train=P2P_TRAIN_ITEMS, n_val=P2P_VAL_ITEMS, hw=P2P_HW,
+                             seed=ENTRY_SEED, block=32):
+    """Phase 14's raw folders ``root/{train,val}/{images,seg_maps,
+    instance_maps}/seq0000/<i>.png``, packed by the port's builder into
+    ``root/packed_{train,val}``: seeded RGB images, and on a grid of
+    ``block``-pixel cells a 35-class seg map and its 16-bit instance map,
+    a cell of a thing label taking the id label x 1000 + k (k counting
+    along the row, so neighbouring cells of one label are one id apart)
+    and a stuff cell its label. Returns ({split: packed root}, the ids
+    written)."""
+    from imaginaire_tpu_torch.data.backends import build_packed_dataset
+    from imaginaire_tpu_torch.data.png import write_png
+
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    written, packed = set(), {}
+    for split, n in (("train", n_train), ("val", n_val)):
+        raw = root / split
+        for i in range(n):
+            labels = rng.randint(0, P2P_LABELS, (h // block, w // block))
+            thing = rng.uniform(size=labels.shape) < 0.5
+            labels[thing] = rng.choice(list(P2P_THINGS), int(thing.sum()))
+            ids = labels.astype(np.int64)
+            for r in range(ids.shape[0]):
+                for c in range(ids.shape[1]):
+                    if labels[r, c] in P2P_THINGS:
+                        ids[r, c] = labels[r, c] * 1000 + c
+            written |= set(np.unique(ids).tolist())
+            up = lambda a: np.repeat(np.repeat(a, block, 0), block, 1)  # noqa: E731
+            for kind, arr in (("images", rng.randint(0, 256, hw + (3,)).astype(np.uint8)),
+                              ("seg_maps", up(labels).astype(np.uint8)),
+                              ("instance_maps", up(ids).astype(np.uint16))):
+                (raw / kind / "seq0000").mkdir(parents=True, exist_ok=True)
+                write_png(raw / kind / "seq0000" / f"{i:05d}.png", arr)
+        packed[split] = build_packed_dataset(str(raw), str(root / f"packed_{split}"),
+                                             ["images", "seg_maps", "instance_maps"])
+    return packed, written
+
+
+def write_encoder_dataset(root, items=P2P_ENC_ITEMS, hw=P2P_ENC_HW, seed=ENTRY_SEED):
+    """The encoder path's folder dataset: seeded PNG images, 8-class seg
+    maps and 16-bit instance maps of four quadrant instances (labels 1-8,
+    each a quarter of the image)."""
+    from imaginaire_tpu_torch.data.png import write_png
+
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    for i in range(items):
+        ids = np.zeros(hw, np.uint16)
+        quads = rng.permutation(np.arange(1, 9))[:4]
+        for q, (y, x) in enumerate(((0, 0), (0, w // 2), (h // 2, 0), (h // 2, w // 2))):
+            ids[y:y + h // 2, x:x + w // 2] = quads[q]
+        for kind, arr in (("images", rng.randint(0, 256, hw + (3,)).astype(np.uint8)),
+                          ("seg_maps", rng.randint(0, 8, hw).astype(np.uint8)),
+                          ("instance_maps", ids)):
+            (root / kind / "seq0000").mkdir(parents=True, exist_ok=True)
+            write_png(root / kind / "seq0000" / f"{i:05d}.png", arr)
+    return root
+
+
+def p2p_config(root, base, edit, name):
+    """``base``'s config, ``edit(cfg)`` applied, a test split copied from
+    the val split, written to ``root / name``."""
+    import yaml
+
+    from imaginaire_tpu_torch.config import load_yaml
+
+    cfg = load_yaml(base)
+    edit(cfg)
+    cfg["test_data"] = dict(copy.deepcopy(cfg["data"]), test=copy.deepcopy(cfg["data"]["val"]))
+    path = root / name
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def all_launches(rs, corr, cn, spade_mod):
+    out = video_launches(rs, corr, cn)
+    out.update(spade_modulation=spade_mod.launches,
+               spade_modulation_bwd=spade_mod.bwd_launches)
+    return out
+
+
+def reset_all_launches(rs, corr, cn, spade_mod):
+    reset_video_launches(rs, corr, cn)
+    spade_mod.launches = spade_mod.bwd_launches = 0
+
+
+def pix2pixHD_entry(rs, spade_mod, corr, cn, device="cuda", overrides=None, hw=P2P_HW,
+                    enc_hw=P2P_ENC_HW):
+    """Phase 14: pix2pixHD at the Cityscapes config's width through
+    ``imaginaire_tpu_torch.train.main`` (2 iterations, batch 2, bf16, a
+    checkpoint) and ``.inference.main`` from a verified load of it, on a
+    seeded packed dataset with 16-bit instance maps; then the encoder path
+    of the unit config (2 iterations, the port's K-means before the
+    save). No kernel of the port runs: every launch count must stay 0."""
+    from imaginaire_tpu_torch import inference, train
+    from imaginaire_tpu_torch.config import recursive_update
+    from imaginaire_tpu_torch.data.png import decode_png
+    from imaginaire_tpu_torch.model_utils.pix2pixHD import get_edges
+    from imaginaire_tpu_torch.resilience.integrity import verify_files
+    from imaginaire_tpu_torch.trainers.pix2pixHD import Trainer
+    from imaginaire_tpu_torch.utils import checkpoint as ckpt_lib
+    from imaginaire_tpu_torch.utils.meters import ScalarWriter
+
+    cuda = device == "cuda"
+    torch.backends.cudnn.allow_tf32 = True  # training runs the defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="pix2pixHD_entry_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        packed, written = write_cityscapes_dataset(tmp, hw=hw)
+        data_s = time.perf_counter() - t0
+
+        def cityscapes(cfg):
+            cfg["data"]["train"]["roots"] = [packed["train"]]
+            cfg["data"]["val"]["roots"] = [packed["val"]]
+            for section in (P2P_FORCED, P2P_CADENCES, overrides or {}):
+                recursive_update(cfg, copy.deepcopy(section))
+
+        cfg_path = p2p_config(tmp, P2P_CONFIG, cityscapes, "p2p.yaml")
+
+        # training through the entry; the bf16 label and the int32 ids of
+        # each D and G step kept
+        logdir = tmp / "log"
+        saves, steps = [], []
+        save, prepare = Trainer.save_checkpoint, Trainer._prepare
+
+        def timed_save(self, *a, **k):
+            t = time.perf_counter()
+            path = save(self, *a, **k)
+            saves.append(time.perf_counter() - t)
+            return path
+
+        def keep_step(self, data):
+            out = prepare(self, data)
+            steps.append((out["label"][:, -1].detach().cpu(),
+                          out["instance_maps"].detach().cpu(), out["label"].dtype))
+            return out
+
+        import gc
+
+        gc.collect()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        reset_all_launches(rs, corr, cn, spade_mod)
+        Trainer.save_checkpoint, Trainer._prepare = timed_save, keep_step
+        try:
+            with HostClocks(Trainer) as clocks:
+                t0 = time.perf_counter()
+                trainer = train.main(["--config", str(cfg_path), "--logdir", str(logdir),
+                                      "--seed", str(ENTRY_SEED), "--device", device])
+                train_s = time.perf_counter() - t0
+        finally:
+            Trainer.save_checkpoint, Trainer._prepare = save, prepare
+        train_peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else "not measured"
+        launches = all_launches(rs, corr, cn, spade_mod)
+        params = {"generator": sum(p.numel() for p in trainer.net_G.parameters()),
+                  "discriminator": sum(p.numel() for p in trainer.net_D.parameters())}
+        if any(launches.values()) or trainer.compute_dtype != torch.bfloat16 \
+                or trainer.current_iteration != P2P_ITERATIONS \
+                or params != {"generator": P2P_G_PARAMS, "discriminator": P2P_D_PARAMS} \
+                or len(steps) != 2 * P2P_ITERATIONS:
+            raise AssertionError(f"pix2pixHD training entry: launches {launches} (all 0 "
+                                 f"expected), compute dtype {trainer.compute_dtype}, "
+                                 f"iterations {trainer.current_iteration}, params {params}")
+        # the edges the bf16 step saw are get_edges of the uint16 ids
+        neighbours = 0
+        for edges, inst, dtype in steps:
+            inst_np = inst.numpy().transpose(0, 2, 3, 1)
+            want = torch.from_numpy(get_edges(inst_np)[..., 0])
+            ids = set(np.unique(inst_np).tolist())
+            pairs = (inst_np[:, :, 1:] - inst_np[:, :, :-1] == 1) & (inst_np[:, :, 1:] >= 1000)
+            neighbours += int(pairs.sum())
+            if dtype != torch.bfloat16 or inst.dtype != torch.int32 \
+                    or not torch.equal(edges.float(), want) or not ids <= written:
+                raise AssertionError(f"the step's edges differ from get_edges of the ids "
+                                     f"({int((edges.float() != want).sum())} pixels), label "
+                                     f"{dtype}, ids {inst.dtype}, unknown ids "
+                                     f"{sorted(ids - written)[:5]}")
+        if not neighbours:
+            raise AssertionError("no neighbouring instances one id apart reached a step")
+        scalars = [r for r in ScalarWriter(logdir).read() if r["kind"] == "counter"
+                   and r["name"].split("/")[0] in ("gen_update", "dis_update")]
+        names = {r["name"] for r in scalars}
+        bad = [r for r in scalars if not np.isfinite(r["value"])]
+        if bad or not {"gen_update/GAN", "gen_update/FeatureMatching",
+                       "gen_update/Perceptual", "dis_update/GAN"} <= names \
+                or set(trainer.weights) != {"GAN", "FeatureMatching", "Perceptual"}:
+            raise AssertionError(f"meters.jsonl: {sorted(names)}, non-finite {bad[:5]}, "
+                                 f"weights {sorted(trainer.weights)}")
+        checkpoint = ckpt_lib.latest_checkpoint_path(str(logdir))
+        integrity = ckpt_lib.read_integrity_sidecar(checkpoint)
+        t0 = time.perf_counter()
+        verify_files(checkpoint, integrity["files"], context=checkpoint)
+        verify_s = time.perf_counter() - t0
+        if ckpt_lib.parse_checkpoint_name(checkpoint)[1] != P2P_ITERATIONS \
+                or integrity["n_leaves"] != len(trainer.state_tensors()):
+            raise AssertionError(f"checkpoint {checkpoint}: {integrity['n_leaves']} records")
+        timings = {k: [t * 1e3 for t in v] for k, v in trainer.timings.items()}
+        del trainer
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # inference through the entry from a verified load of the checkpoint
+        kept, generate = [], Trainer._generate
+
+        def keep(self, *a, **k):
+            out = generate(self, *a, **k)
+            kept.append(out.detach().float().cpu())
+            return out
+
+        out_dir = tmp / "frames"
+        reset_all_launches(rs, corr, cn, spade_mod)
+        Trainer._generate = keep
+        try:
+            t0 = time.perf_counter()
+            inference.main(["--config", str(cfg_path), "--checkpoint", checkpoint,
+                            "--output_dir", str(out_dir), "--logdir", str(tmp / "inference"),
+                            "--seed", str(ENTRY_SEED), "--device", device])
+            inference_s = time.perf_counter() - t0
+        finally:
+            Trainer._generate = generate
+        inf_launches = all_launches(rs, corr, cn, spade_mod)
+        pngs = sorted(out_dir.rglob("*.png"))
+        shapes = [decode_png(p.read_bytes()).shape for p in pngs]
+        if len(pngs) != P2P_VAL_ITEMS or any(s_ != hw + (3,) for s_ in shapes) \
+                or any(inf_launches.values()) or len(kept) != P2P_VAL_ITEMS \
+                or not all(torch.isfinite(f).all() and f.abs().max() <= 1 for f in kept):
+            raise AssertionError(f"inference: {len(pngs)} PNGs of {shapes}, launches "
+                                 f"{inf_launches}, outputs {len(kept)}")
+        peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else "not measured"
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # the encoder path: the unit config, PNG images, 2 iterations
+        enc_root = write_encoder_dataset(tmp / "enc_raw", hw=enc_hw)
+
+        def encoder_cfg(cfg):
+            cfg["data"]["input_types"][0]["images"]["ext"] = "png"
+            for split in ("train", "val"):
+                cfg["data"][split]["roots"] = [str(enc_root)]
+                cfg["data"][split]["augmentations"]["resize_h_w"] = \
+                    f"{enc_hw[0]}, {enc_hw[1]}"
+
+        enc_cfg_path = p2p_config(tmp, P2P_UNIT, encoder_cfg, "p2p_enc.yaml")
+        clusters, pre_save = [], Trainer._pre_save_checkpoint
+
+        def timed_clusters(self):
+            t = time.perf_counter()
+            pre_save(self)
+            clusters.append(time.perf_counter() - t)
+
+        reset_all_launches(rs, corr, cn, spade_mod)
+        Trainer._pre_save_checkpoint = timed_clusters
+        try:
+            t0 = time.perf_counter()
+            enc_trainer = train.main(["--config", str(enc_cfg_path), "--logdir",
+                                      str(tmp / "enc_log"), "--seed", str(ENTRY_SEED),
+                                      "--device", device])
+            enc_s = time.perf_counter() - t0
+        finally:
+            Trainer._pre_save_checkpoint = pre_save
+        enc_launches = all_launches(rs, corr, cn, spade_mod)
+        enc_ckpt = ckpt_lib.latest_checkpoint_path(str(tmp / "enc_log"))
+        stored = ckpt_lib.load_checkpoint(enc_ckpt)["state"]["cluster_centers"]
+        clustered = int((stored.abs().sum(dim=2) > 0).sum())
+        if any(enc_launches.values()) or not enc_trainer.net_G.concat_features \
+                or not clusters or clustered == 0 or not torch.isfinite(stored).all() \
+                or not torch.equal(stored.to(enc_trainer.cluster_centers.device),
+                                   enc_trainer.cluster_centers):
+            raise AssertionError(f"encoder path: launches {enc_launches}, clustered centers "
+                                 f"{clustered}, K-means calls {len(clusters)}")
+        del enc_trainer
+        if cuda:
+            torch.cuda.empty_cache()
+    # the first iteration carries the process's first cuDNN work at these
+    # shapes; the warm figures are the iterations after it
+    warm_ms = float(np.median(timings["iteration"][1:]))
+    batch = 2
+    row = {"items": {"train": P2P_TRAIN_ITEMS, "val": P2P_VAL_ITEMS}, "hw": list(hw),
+           "data_s": data_s, "generator_params": params["generator"],
+           "discriminator_params": params["discriminator"], "train_s": train_s,
+           "iterations": P2P_ITERATIONS, "batch": batch,
+           "iteration_ms": timings["iteration"],
+           "first_iteration_ms": timings["iteration"][0],
+           "warm_iterations": len(timings["iteration"]) - 1,
+           "warm_iteration_ms": warm_ms, "warm_images_per_s": batch / (warm_ms / 1e3),
+           "warm_dis_step_ms": float(np.median(timings["dis_step"][1:])),
+           "warm_gen_step_ms": float(np.median(timings["gen_step"][1:])),
+           "dis_step_ms": timings["dis_step"], "gen_step_ms": timings["gen_step"],
+           "data_wait_ms": timings["data_wait"], "loader_wait_ms": timings["loader_wait"],
+           "host": clocks.table(), "launches": launches,
+           "neighbouring_ids_one_apart": neighbours, "train_peak_mem_gib": train_peak,
+           "checkpoint_bytes": sum(integrity["files"][f]["size"] for f in integrity["files"]),
+           "checkpoint_save_s": saves, "checkpoint_files_verify_s": verify_s,
+           "inference_s": inference_s, "inference_launches": inf_launches,
+           "inference_items": len(kept),
+           "encoder_path": {"hw": list(enc_hw), "train_s": enc_s, "kmeans_s": clusters,
+                            "clustered_centers": clustered, "launches": enc_launches},
+           "peak_mem_gib": peak, "phase_s": time.perf_counter() - t_phase,
+           "nvidia_smi": nvidia_smi() if cuda else "not measured"}
+    phase("pix2pixHD_entry", **row)
+    return row
+
+
 def one_hot_frame(rng):
     idx = rng.randint(0, V2V_LABELS, (1,) + V2V_HW)
     label = np.zeros((1,) + V2V_HW + (V2V_LABELS,), np.float32)
@@ -3840,7 +4193,13 @@ def main():
     fs = timed(fs_vid2vid_entry, rs, spade_mod, corr, cn)
     fs_train, fs_hyper = fs["launches"], fs["hyper"]
     wc = timed(wc_vid2vid_entry, rs, spade_mod, corr, cn)
+    p2p = timed(pix2pixHD_entry, rs, spade_mod, corr, cn)
     phase("phase_seconds", **seconds, total=time.perf_counter() - t0)
+
+    def p2p_launches(name):
+        """pix2pixHD (phase 14): plain instance norms, no kernel."""
+        return {"train": p2p["launches"][name], "inference": p2p["inference_launches"][name],
+                "encoder_path": p2p["encoder_path"]["launches"][name]}
 
     def per_call_set(table, dtype, path="spade"):
         sel = [r for r in table if r["dtype"].startswith(dtype) and r["path"] == path]
@@ -3865,6 +4224,7 @@ def main():
                         "train": fs_train["spade_modulation"]},
         # wc-vid2vid (phase 13): BatchNorm bases everywhere
         "wc_launches": {"train": wc["launches"]["spade_modulation"]},
+        "p2p_launches": p2p_launches("spade_modulation"),
         # the hyper route's 12 calls of a batch-1 forward at 512x512, fp32
         "fs_forward": per_call_set(rows, "float32", "fs"),
         # the 19 calls of one bs-4 generator forward, fp32, n_pairs 1
@@ -3876,6 +4236,7 @@ def main():
         "fs_launches": {"hyper_fp32_g_step": fs_hyper["fp32_step_launches"]["backward"],
                         "train": 0},
         "wc_launches": {"train": 0},
+        "p2p_launches": p2p_launches("spade_modulation_bwd"),
         "fs_backward": per_call_set(bwd_rows, "bfloat16", "fs"),
         # the 19 calls of one G step's backward, bf16 (the training path's
         # type), n_pairs 1; max_abs_err is the fp32 checks' worst error
@@ -3901,6 +4262,7 @@ def main():
                         "fp32_g_step": wc["fp32_step_launches"]["resample2d"],
                         "partial_conv_forward": wc["partial_conv"]["launches"]["kernel"],
                         "inference": wc["inference_launches"]["resample2d"]},
+        "p2p_launches": p2p_launches("resample2d"),
         # one warp of the previous (1, 3, 512, 1024) frame, fp32, mixed flow
         **{key: rs_rows[0][key] for key in
            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}, {
@@ -3912,6 +4274,7 @@ def main():
                         "fp32_g_step": fs["fp32_step_launches"]["resample2d_bwd"]},
         "wc_launches": {"train": wc["launches"]["resample2d_bwd"],
                         "fp32_g_step": wc["fp32_step_launches"]["resample2d_bwd"]},
+        "p2p_launches": p2p_launches("resample2d_bwd"),
         # the training warp's backward of (2, 3, 512, 1024) frames, bf16 (the
         # path's type), dflow alone (the path's), mixed flow; max_abs_err is
         # dflow's (0: bit for bit) and the fp32 dx checks' worst over the
@@ -3926,6 +4289,7 @@ def main():
         "eval_entry_launches": v2v_eval["launches"]["correlation"],
         "wc_launches": {"train": wc["launches"]["correlation"],
                         "fp32_g_step": wc["fp32_step_launches"]["correlation"]},
+        "p2p_launches": p2p_launches("correlation"),
         # the one call of a FlowNet2 forward of one frame pair, fp32
         **{key: corr_rows[0][key] for key in
            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}, {
@@ -3936,6 +4300,7 @@ def main():
         "eval_entry_launches": v2v_eval["launches"]["channelnorm"],
         "wc_launches": {"train": wc["launches"]["channelnorm"],
                         "fp32_g_step": wc["fp32_step_launches"]["channelnorm"]},
+        "p2p_launches": p2p_launches("channelnorm"),
         # the 6 calls (4 of 3 channels, 2 of 2) of a FlowNet2 forward of
         # one frame pair, fp32
         **{key: sum(r[key] * r["calls"] for r in cn_per_pair)
@@ -3952,7 +4317,7 @@ def main():
              "spade_train_entry": entry, "resample2d_bwd": rs_bwd_rows,
              "vid2vid_train_entry": v2v_train, "vid2vid_eval_entry": v2v_eval,
              "spade_eval_entry": evaluation, "fs_vid2vid_entry": fs,
-             "wc_vid2vid_entry": wc,
+             "wc_vid2vid_entry": wc, "pix2pixHD_entry": p2p,
              "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)

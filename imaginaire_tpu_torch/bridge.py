@@ -20,6 +20,11 @@ parameter or buffer of the module that no leaf filled. The same mapping
 carries the JAX discriminator's ``params``/``spectral`` trees and the
 VGG19 ``params`` of the perceptual loss (into ``PerceptualLoss.module``).
 
+``load_jax_state(trainer, state)`` fills a port trainer from a JAX
+trainer's state pytree: ``vars_G`` and ``vars_D`` as above, and
+pix2pixHD's ``cluster_centers`` (label, cluster, feature: the same layout
+in both packages).
+
 ``load_adam_state(opt, module, mu, nu, count)`` carries optax Adam's
 moments (trees shaped like the module's ``params``) and step count into
 the port's ``Adam`` over ``module.parameters()``, so that both packages
@@ -139,3 +144,23 @@ def load_adam_state(opt, module, mu, nu, count):
                            f"port parameters unset")
     opt.count = int(np.asarray(count))
     return opt
+
+
+@torch.no_grad()
+def load_jax_state(trainer, state):
+    """Copy a JAX trainer's ``state`` (``vars_G``, and where present
+    ``vars_D`` and ``cluster_centers``) into ``trainer``; a leaf the
+    trainer has no place for raises. Returns the trainer."""
+    load_flax_variables(trainer.net_G, state["vars_G"])
+    if "vars_D" in state:
+        if trainer.net_D is None:
+            raise KeyError("the JAX state has vars_D; the port trainer has no D")
+        load_flax_variables(trainer.net_D, state["vars_D"])
+    if "cluster_centers" in state:
+        dest = getattr(trainer, "cluster_centers", None)
+        src = torch.from_numpy(np.array(state["cluster_centers"], np.float32))
+        if dest is None or tuple(dest.shape) != tuple(src.shape):
+            raise KeyError(f"cluster_centers {tuple(src.shape)} has no place in the "
+                           "port trainer (an encoder's, after init_state)")
+        dest.copy_(src)
+    return trainer

@@ -1,11 +1,15 @@
 """A small PNG codec on ``zlib`` and numpy.
 
 The machine that runs the port on the GPU has no OpenCV and no PIL, so
-the port reads and writes PNG itself: 8-bit grayscale, RGB and RGBA,
-non-interlaced. ``decode_png`` returns (H, W, C) uint8 with the channels
-in file order (RGB, RGBA), which is what the JAX package's
-``cv2.imdecode`` + BGR->RGB conversion returns for the same files.
-``encode_png`` writes the same formats with every row's filter "Up".
+the port reads and writes PNG itself: grayscale, RGB and RGBA of 8 or
+16 bits a sample, non-interlaced. ``decode_png`` returns (H, W, C)
+uint8, or uint16 for a 16-bit file (big-endian samples, as the format
+stores them), with the channels in file order (RGB, RGBA), which is what
+the JAX package's ``cv2.imdecode(..., IMREAD_UNCHANGED)`` + BGR->RGB
+conversion returns for the same files. 16-bit grayscale is what
+Cityscapes' ``*_instanceIds.png`` maps hold (ids such as 26001, label x
+1000 + k). ``encode_png`` writes the same formats, uint8 as 8-bit and
+uint16 as 16-bit, with every row's filter "Up".
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> channels: grayscale, RGB, RGBA
 _CHANNELS = {0: 1, 2: 3, 6: 4}
 _COLOUR_TYPE = {c: t for t, c in _CHANNELS.items()}
+_DEPTHS = {8: np.uint8, 16: np.uint16}
 
 
 def _chunks(buf, name):
@@ -84,7 +89,7 @@ def _unfilter(rows, filters, bpp):
 
 
 def decode_png(buf, name="<buffer>"):
-    """PNG bytes -> (H, W, C) uint8 (C = 1, 3 or 4)."""
+    """PNG bytes -> (H, W, C) uint8 or uint16 (C = 1, 3 or 4)."""
     buf = bytes(buf)
     if not buf.startswith(PNG_SIGNATURE):
         raise ValueError(f"{name}: not a PNG file")
@@ -97,19 +102,23 @@ def decode_png(buf, name="<buffer>"):
     if header is None:
         raise ValueError(f"{name}: PNG has no IHDR chunk")
     w, h, depth, colour, _, _, interlace = header
-    if depth != 8 or colour not in _CHANNELS or interlace:
+    if depth not in _DEPTHS or colour not in _CHANNELS or interlace:
         raise NotImplementedError(
             f"{name}: PNG of bit depth {depth}, colour type {colour}, "
-            f"interlace {interlace}; the port's codec reads 8-bit "
+            f"interlace {interlace}; the port's codec reads 8- and 16-bit "
             "grayscale, RGB and RGBA, non-interlaced")
     ch = _CHANNELS[colour]
-    stride = w * ch
+    bpp = ch * depth // 8  # bytes a pixel: the filters' left neighbour
+    stride = w * bpp
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size != h * (stride + 1):
         raise ValueError(f"{name}: PNG image data holds {raw.size} bytes, "
                          f"expected {h * (stride + 1)}")
     raw = raw.reshape(h, stride + 1)
-    return _unfilter(raw[:, 1:], raw[:, 0], ch).reshape(h, w, ch)
+    rows = _unfilter(raw[:, 1:], raw[:, 0], bpp)
+    if depth == 16:
+        rows = rows.view(">u2").astype(np.uint16)
+    return rows.reshape(h, w, ch)
 
 
 def _chunk(ctype, data):
@@ -118,20 +127,24 @@ def _chunk(ctype, data):
 
 
 def encode_png(image, level=6):
-    """(H, W), (H, W, 1), (H, W, 3) or (H, W, 4) uint8 -> PNG bytes."""
+    """(H, W), (H, W, 1), (H, W, 3) or (H, W, 4) uint8 or uint16 -> PNG
+    bytes of 8 or 16 bits a sample."""
     img = np.asarray(image)
     if img.ndim == 2:
         img = img[:, :, None]
-    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] not in _COLOUR_TYPE:
-        raise ValueError(f"encode_png takes (H, W[, 1|3|4]) uint8, got "
+    if img.dtype not in (np.uint8, np.uint16) or img.ndim != 3 \
+            or img.shape[2] not in _COLOUR_TYPE:
+        raise ValueError(f"encode_png takes (H, W[, 1|3|4]) uint8 or uint16, got "
                          f"{img.dtype} {img.shape}")
     h, w, ch = img.shape
-    rows = np.ascontiguousarray(img).reshape(h, w * ch)
-    filtered = np.empty((h, w * ch + 1), np.uint8)
+    depth = 8 * img.dtype.itemsize
+    rows = np.ascontiguousarray(img.astype(img.dtype.newbyteorder(">"))).view(
+        np.uint8).reshape(h, -1)
+    filtered = np.empty((h, rows.shape[1] + 1), np.uint8)
     filtered[:, 0] = 2  # Up
     filtered[:, 1:] = rows
     filtered[1:, 1:] -= rows[:-1]
-    header = struct.pack(">IIBBBBB", w, h, 8, _COLOUR_TYPE[ch], 0, 0, 0)
+    header = struct.pack(">IIBBBBB", w, h, depth, _COLOUR_TYPE[ch], 0, 0, 0)
     return (PNG_SIGNATURE + _chunk(b"IHDR", header)
             + _chunk(b"IDAT", zlib.compress(filtered.tobytes(), level))
             + _chunk(b"IEND", b""))

@@ -6,8 +6,8 @@ channel counts differ. ``order`` covers both main-branch convs
 ('CNACNA', 'NACNAC' or the 'pre_act' alias); the shortcut runs the first
 half of the order without the nonlinearity, keeping the (conditional)
 norm when ``skip_activation_norm``. The JAX block's stride, dilation,
-padding-mode, noise and shortcut-forcing options wait for the families
-that use them.
+noise and shortcut-forcing options wait for the families that use
+them.
 
 ``HyperRes2dBlock`` (fs-vid2vid) takes per-sample conv kernels and
 hyper-SPADE weights at call time for its two main-branch steps
@@ -37,10 +37,10 @@ def _split_order(order):
 
 class Res2dBlock(nn.Module):
     def __init__(self, in_channels, out_channels, kernel_size=3, padding=None,
-                 bias=True, weight_norm_type="", weight_norm_params=None,
-                 activation_norm_type="", activation_norm_params=None,
-                 skip_activation_norm=True, nonlinearity="leakyrelu",
-                 order="CNACNA"):
+                 bias=True, padding_mode="zeros", weight_norm_type="",
+                 weight_norm_params=None, activation_norm_type="",
+                 activation_norm_params=None, skip_activation_norm=True,
+                 nonlinearity="leakyrelu", order="CNACNA"):
         super().__init__()
         order0, order1 = _split_order(order)
         hidden = min(in_channels, out_channels)
@@ -49,7 +49,7 @@ class Res2dBlock(nn.Module):
         else:
             bias_0 = bias_1 = bias_s = bias
         common = dict(
-            kernel_size=kernel_size, padding=padding,
+            kernel_size=kernel_size, padding=padding, padding_mode=padding_mode,
             weight_norm_type=weight_norm_type,
             weight_norm_params=weight_norm_params,
             activation_norm_type=activation_norm_type,

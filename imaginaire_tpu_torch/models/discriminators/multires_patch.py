@@ -1,6 +1,7 @@
-"""Multi-resolution PatchGAN pieces (port of
+"""Multi-resolution PatchGAN discriminator (port of
 ``imaginaire_tpu/models/discriminators/multires_patch.py``): the N-layer
-patch discriminator and the pyramid's 2x downsampling.
+patch discriminator, the pyramid's 2x downsampling, and the
+config-driven ``Discriminator`` (pix2pixHD's) over concat(label, image).
 
 The pyramid is bilinear with ALIGN-CORNERS sampling, the reference's
 convention (output pixel i samples input position i (n_in - 1) /
@@ -14,8 +15,13 @@ import math
 import torch
 from torch import nn
 
+from imaginaire_tpu_torch.config import as_attrdict, cfg_get
 from imaginaire_tpu_torch.layers import Conv2dBlock
 from imaginaire_tpu_torch.optim.remat import call_block, resolve_policy
+from imaginaire_tpu_torch.utils.data import (
+    get_paired_input_image_channel_number,
+    get_paired_input_label_channel_number,
+)
 
 
 def _axis(n_in, n_out, dtype, device):
@@ -112,3 +118,36 @@ class MultiResPatchDiscriminator(nn.Module):
             if i != self.num_discriminators - 1:
                 x = downsample2x_bilinear(x)
         return outputs, features_list
+
+
+class Discriminator(nn.Module):
+    """Config-driven wrapper: ``MultiResPatchDiscriminator`` (``model``,
+    as the flax tree names it) over concat(label, image), with the JAX
+    defaults (kernel 3, 128 filters, 5 layers, no activation norm,
+    spectral weight norm). The fake images go through first, then the
+    real ones, so each spectral-norm ``u`` advances in that order."""
+
+    def __init__(self, dis_cfg, data_cfg):
+        super().__init__()
+        dis_cfg = as_attrdict(dis_cfg)
+        data_cfg = as_attrdict(data_cfg)
+        in_channels = (get_paired_input_label_channel_number(data_cfg)
+                       + get_paired_input_image_channel_number(data_cfg))
+        self.model = MultiResPatchDiscriminator(
+            in_channels,
+            num_discriminators=cfg_get(dis_cfg, "num_discriminators", 2),
+            kernel_size=cfg_get(dis_cfg, "kernel_size", 3),
+            num_filters=cfg_get(dis_cfg, "num_filters", 128),
+            num_layers=cfg_get(dis_cfg, "num_layers", 5),
+            max_num_filters=cfg_get(dis_cfg, "max_num_filters", 512),
+            activation_norm_type=cfg_get(dis_cfg, "activation_norm_type", "none"),
+            weight_norm_type=cfg_get(dis_cfg, "weight_norm_type", "spectral"),
+            remat=cfg_get(dis_cfg, "remat", "none"))
+
+    def forward(self, data, net_G_output):
+        out = {}
+        out["fake_outputs"], out["fake_features"] = self.model(
+            torch.cat([data["label"], net_G_output["fake_images"]], dim=1))
+        out["real_outputs"], out["real_features"] = self.model(
+            torch.cat([data["label"], data["images"]], dim=1))
+        return out

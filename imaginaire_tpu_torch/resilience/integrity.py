@@ -8,6 +8,10 @@ raw bytes, its shape and its dtype, over a flat ``{path: tensor}`` tree,
 and ``verify_tree`` replays them on the loaded tensors. A mismatch
 raises ``CheckpointIntegrityError``; ``quarantine_checkpoint`` renames
 a corrupt checkpoint and its sidecars ``*.corrupt`` so scans skip it.
+
+The tensors' crc32s run on a thread pool (``zlib.crc32`` releases the
+GIL over a large buffer), and ``CrcWriter`` records a file's digest as
+it is written, so a save does not read its file back to digest it.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from __future__ import annotations
 import logging
 import os
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -47,12 +52,10 @@ def tree_checksums(tree):
     ``{"version", "algo", "leaves": {path: record}, "skipped": {path:
     reason}, "n_leaves"}``. Leaves that are not tensors are skipped with a
     reason."""
-    leaves, skipped = {}, {}
-    for key, leaf in tree.items():
-        if torch.is_tensor(leaf):
-            leaves[key] = tensor_record(leaf)
-        else:
-            skipped[key] = "not_tensor"
+    keys = [k for k, leaf in tree.items() if torch.is_tensor(leaf)]
+    skipped = {k: "not_tensor" for k, leaf in tree.items() if not torch.is_tensor(leaf)}
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        leaves = dict(zip(keys, pool.map(lambda k: tensor_record(tree[k]), keys)))
     return {"version": INTEGRITY_VERSION, "algo": "crc32", "leaves": leaves,
             "skipped": skipped, "n_leaves": len(leaves)}
 
@@ -90,6 +93,26 @@ def _file_crc(path):
             crc = zlib.crc32(chunk, crc)
             size += len(chunk)
     return size, int(crc)
+
+
+class CrcWriter:
+    """A write-only file wrapper that keeps the size and crc32 of what
+    passes through it (``digest()``: a ``file_digests`` record)."""
+
+    def __init__(self, f):
+        self.f, self.size, self.crc = f, 0, 0
+
+    def write(self, data):
+        view = memoryview(data)
+        self.crc = zlib.crc32(view, self.crc)
+        self.size += view.nbytes
+        return self.f.write(data)
+
+    def flush(self):
+        self.f.flush()
+
+    def digest(self):
+        return {"size": self.size, "crc": int(self.crc)}
 
 
 def file_digests(root):

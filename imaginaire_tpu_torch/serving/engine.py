@@ -194,9 +194,15 @@ class ServingEngine:
         self.cfg = as_attrdict(cfg)
         self.settings = serving_settings(self.cfg)
         self.family = _family_of(self.cfg)
+        trainer_cls = (resolve(self.cfg.trainer.type, "Trainer") if trainer is None
+                       else type(trainer))
+        if not getattr(trainer_cls, "serves_requests", True):
+            raise ServingError(
+                f"family {self.family!r} is not served by the port (ROADMAP.md A.5): "
+                f"{trainer_cls.serves_requests_reason}; "
+                "use python -m imaginaire_tpu_torch.inference")
         if trainer is None:
-            trainer = resolve(self.cfg.trainer.type, "Trainer")(self.cfg,
-                                                                device=device)
+            trainer = trainer_cls(self.cfg, device=device)
         self.trainer = trainer
         self.device = trainer.device
         # a frame-recurrent generator conditions each frame on its own

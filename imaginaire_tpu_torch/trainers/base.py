@@ -764,7 +764,12 @@ class BaseTrainer:
         self.dis_rng.set_state(state["dis_rng"].cpu())
         self.num_ema_updates = int(state["num_ema_updates"])
 
+    def _pre_save_checkpoint(self):
+        """Family hook run first in ``save_checkpoint``, before the state
+        is read (pix2pixHD clusters its encoder's features here)."""
+
     def save_checkpoint(self, current_epoch, current_iteration):
+        self._pre_save_checkpoint()
         logdir = cfg_get(self.cfg, "logdir", ".")
         meta = {"epoch": int(current_epoch), "iteration": int(current_iteration),
                 "batch_in_epoch": int(current_iteration - self._epoch_start_iteration)}
@@ -786,8 +791,7 @@ class BaseTrainer:
         logdir = cfg_get(self.cfg, "logdir", ".")
         resume = checkpoint_path is None
         if resume:
-            payload, checkpoint_path, fallbacks = ckpt_lib.load_latest_verified(
-                logdir, map_location=self.device)
+            payload, checkpoint_path, fallbacks = ckpt_lib.load_latest_verified(logdir)
             if payload is None:
                 print("No checkpoint found.")
                 return False
@@ -796,8 +800,7 @@ class BaseTrainer:
                       f"quarantining {fallbacks} corrupt checkpoint(s)")
         else:
             try:
-                payload = ckpt_lib.load_checkpoint(checkpoint_path,
-                                                   map_location=self.device)
+                payload = ckpt_lib.load_checkpoint(checkpoint_path)
             except Exception as e:
                 if not fallback or not ckpt_lib.is_corrupt_checkpoint_error(e):
                     raise
@@ -807,8 +810,7 @@ class BaseTrainer:
                 ckpt_lib.quarantine_checkpoint(checkpoint_path,
                                                reason=type(e).__name__)
                 payload, checkpoint_path, _ = ckpt_lib.load_latest_verified(
-                    os.path.dirname(os.path.abspath(str(checkpoint_path))),
-                    map_location=self.device)
+                    os.path.dirname(os.path.abspath(str(checkpoint_path))))
                 if payload is None:
                     raise RuntimeError("no verifiable fallback checkpoint beside "
                                        f"{checkpoint_path}") from e

@@ -97,7 +97,7 @@ class Trainer(Vid2VidTrainer):
                 raise FileNotFoundError(
                     f"gen.single_image_model.checkpoint={ckpt!r} does not resolve to "
                     f"a checkpoint; train the single-image stage ({cfg_path}) first")
-            state = ckpt_lib.load_checkpoint(path, map_location=self.device)["state"]
+            state = ckpt_lib.load_checkpoint(path)["state"]
             weights = {k[len("net_G/"):]: v for k, v in state.items()
                        if k.startswith("net_G/")}
             if not weights:

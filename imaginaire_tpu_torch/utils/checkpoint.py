@@ -10,10 +10,12 @@ The JAX package's loop contract, on torch files:
     records and the files' digests (``resilience/integrity.py``).
 
 Save: ``torch.save`` of CPU copies into a temporary directory (flushed
-to disk), the integrity sidecar, an atomic rename of the directory, then
-the pointer; retention GC last. Load: the files' digests are checked
-before ``torch.load(..., weights_only=True)`` reads a byte, and the
-tensors' records after, before the caller sees them.
+to disk; the file's digest taken as it is written), the integrity
+sidecar, an atomic rename of the directory, then the pointer; retention
+GC last. Load: the files' digests are checked before
+``torch.load(..., weights_only=True)`` reads a byte into host memory, and
+the tensors' records there, before the caller sees them; the caller's
+``copy_`` moves them to the device.
 ``load_latest_verified`` quarantines every corrupt candidate and falls
 back to the newest one that verifies.
 """
@@ -33,7 +35,7 @@ import torch
 
 from imaginaire_tpu_torch.resilience.integrity import (
     CheckpointIntegrityError,
-    file_digests,
+    CrcWriter,
     quarantine_checkpoint,
     sidecar_files,
     tree_checksums,
@@ -118,10 +120,14 @@ def save_checkpoint(logdir, state, meta, epoch, iteration, max_to_keep=None):
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
     with open(os.path.join(tmp, STATE_FILE), "wb") as f:
-        torch.save({"state": cpu_state, "meta": dict(meta)}, f)
+        writer = CrcWriter(f)
+        torch.save({"state": cpu_state, "meta": dict(meta)}, writer)
         f.flush()
         os.fsync(f.fileno())
-    integrity = dict(tree_checksums(cpu_state), files=file_digests(tmp))
+        if os.fstat(f.fileno()).st_size != writer.size:
+            raise RuntimeError(f"{STATE_FILE}: torch.save wrote around the digest "
+                               "writer; its record would not match the file")
+    integrity = dict(tree_checksums(cpu_state), files={STATE_FILE: writer.digest()})
     _write_atomic(path + ".integrity.json", json.dumps(integrity, indent=1))
     os.replace(tmp, path)
     _write_atomic(os.path.join(logdir, POINTER), name + "\n")
@@ -176,15 +182,16 @@ def gc_checkpoints(logdir, max_to_keep, protect=()):
     return deleted
 
 
-def load_checkpoint(path, map_location=None):
+def load_checkpoint(path):
     """The ``{"state", "meta"}`` payload of one checkpoint, its tensors
-    on ``map_location``. Where the checkpoint has a sidecar, the files'
-    digests are checked before loading and the tensors' records after;
-    either mismatch raises ``CheckpointIntegrityError``."""
+    in host memory (the caller's ``copy_`` places them on the device).
+    Where the checkpoint has a sidecar, the files' digests are checked
+    before loading and the tensors' records after; either mismatch raises
+    ``CheckpointIntegrityError``."""
     path = os.path.abspath(str(path))
     integrity = read_integrity_sidecar(path)
     verify_files(path, (integrity or {}).get("files"), context=path)
-    payload = torch.load(os.path.join(path, STATE_FILE), map_location=map_location,
+    payload = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
                          weights_only=True)
     verify_tree(payload["state"], integrity, context=path)
     return payload
@@ -207,7 +214,7 @@ def is_corrupt_checkpoint_error(exc):
     return isinstance(exc, RuntimeError) and "PytorchStreamReader" in str(exc)
 
 
-def load_latest_verified(logdir, map_location=None):
+def load_latest_verified(logdir):
     """The resume path: restore the pointed checkpoint, quarantining each
     candidate that fails to verify or load and falling back to the next
     newest. Returns ``(payload, path, fallbacks)``; ``payload`` is None
@@ -228,7 +235,7 @@ def load_latest_verified(logdir, map_location=None):
     errors = []
     for fallbacks, cand in enumerate(candidates):
         try:
-            payload = load_checkpoint(cand, map_location=map_location)
+            payload = load_checkpoint(cand)
         except Exception as e:  # noqa: BLE001 -- sorted by is_corrupt_checkpoint_error
             if not is_corrupt_checkpoint_error(e):
                 raise  # the device or the runtime, not this checkpoint

@@ -3,7 +3,9 @@
 edge and instance maps).
 
 - the port's PNG codec: its decode equals ``cv2.imdecode`` on every
-  fixture PNG, its encoder round-trips (and OpenCV reads what it writes);
+  fixture PNG and, 8- and 16-bit, under each of the five row filters;
+  its encoder round-trips (and OpenCV reads what it writes); 16-bit
+  instance ids reach the label as they are;
 - packs: a pack built by either package reads identically in the other;
 - ``process_item`` of every fixture item on ``configs/unit_test/spade.yaml``
   with crops and ``resize_smallest_side`` cut to 64, the train split
@@ -21,7 +23,9 @@ edge and instance maps).
 import json
 import os
 import random
+import struct
 import sys
+import zlib
 
 import cv2
 import numpy as np
@@ -114,10 +118,110 @@ def test_png_decode_reads_every_filter(channels):
     np.testing.assert_array_equal(png.decode_png(buf.tobytes()), want)
 
 
+def _filtered_png(img, depth, colour):
+    """A PNG of ``img`` whose row r uses filter r % 5 (None, Sub, Up,
+    Average, Paeth), written here from the format's definition."""
+    h, w = img.shape[:2]
+    raw = np.ascontiguousarray(img.astype(">u2") if depth == 16 else img).view(
+        np.uint8).reshape(h, -1).astype(np.int64)
+    bpp = raw.shape[1] // w
+    out = []
+    for r in range(h):
+        f = r % 5
+        up = raw[r - 1] if r else np.zeros_like(raw[r])
+        left = np.concatenate([np.zeros(bpp, np.int64), raw[r, :-bpp]])
+        upleft = np.concatenate([np.zeros(bpp, np.int64), up[:-bpp]])
+        p = left + up - upleft
+        pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+        paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+        pred = [0 * left, left, up, (left + up) // 2, paeth][f]
+        out.append(bytes([f]) + ((raw[r] - pred) % 256).astype(np.uint8).tobytes())
+
+    def chunk(ctype, data):
+        return (struct.pack(">I", len(data)) + ctype + data
+                + struct.pack(">I", zlib.crc32(ctype + data)))
+
+    header = struct.pack(">IIBBBBB", w, h, depth, colour, 0, 0, 0)
+    return (png.PNG_SIGNATURE + chunk(b"IHDR", header)
+            + chunk(b"IDAT", zlib.compress(b"".join(out))) + chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("channels", [1, 3, 4])
+@pytest.mark.parametrize("depth", [8, 16])
+def test_png_decode_matches_opencv_for_every_row_filter(depth, channels):
+    """16-bit files (Cityscapes' instance maps are 16-bit grayscale) and
+    8-bit ones, each row under another of the five filters, against
+    ``cv2.imdecode(..., IMREAD_UNCHANGED)``."""
+    dtype = np.uint16 if depth == 16 else np.uint8
+    img = np.random.RandomState(depth + channels).randint(
+        0, np.iinfo(dtype).max + 1, (11, 13, channels)).astype(dtype)
+    img[:5] //= 16  # smooth rows
+    buf = _filtered_png(img, depth, {1: 0, 3: 2, 4: 6}[channels])
+    got = png.decode_png(buf)
+    want = cv2.imdecode(np.frombuffer(buf, np.uint8), cv2.IMREAD_UNCHANGED)
+    if want.ndim == 3:
+        want = cv2.cvtColor(want, cv2.COLOR_BGR2RGB if channels == 3 else cv2.COLOR_BGRA2RGBA)
+    assert got.dtype == dtype
+    np.testing.assert_array_equal(got.reshape(want.shape), want)
+    np.testing.assert_array_equal(got, img)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (5, 7, 1), (17, 13, 3), (4, 4, 4)])
+def test_png_16bit_round_trips(shape):
+    img = np.random.RandomState(3).randint(0, 65536, shape).astype(np.uint16)
+    buf = png.encode_png(img)
+    np.testing.assert_array_equal(png.decode_png(buf).reshape(shape), img)
+    cv = cv2.imdecode(np.frombuffer(buf, np.uint8), cv2.IMREAD_UNCHANGED)
+    assert cv.dtype == np.uint16
+    if cv.ndim == 3:
+        cv = cv2.cvtColor(cv, cv2.COLOR_BGR2RGB if cv.shape[2] == 3 else cv2.COLOR_BGRA2RGBA)
+    np.testing.assert_array_equal(cv.reshape(shape), img)
+    ok, buf = cv2.imencode(".png", img)  # libpng's own filter choices
+    want = cv2.imdecode(buf, cv2.IMREAD_UNCHANGED)
+    if want.ndim == 3:
+        want = cv2.cvtColor(want, cv2.COLOR_BGR2RGB if want.shape[2] == 3
+                            else cv2.COLOR_BGRA2RGBA)
+    np.testing.assert_array_equal(png.decode_png(buf.tobytes()).reshape(want.shape), want)
+
+
+def test_uint16_instance_ids_are_not_divided_by_255(tmp_path):
+    """A Cityscapes-style 16-bit instance map through the pix2pixHD unit
+    config's dataset: the ids reach the label's last channel as they are
+    (the /255 is keyed on a uint8 source), in both packages."""
+    rng = np.random.RandomState(4)
+    ids = np.array([7, 24, 26001, 26002, 33000], np.uint16)[rng.randint(0, 5, (8, 8))]
+    ids = np.repeat(np.repeat(ids, 8, 0), 8, 1)
+    for kind, arr in (("images", rng.randint(0, 256, (64, 64, 3)).astype(np.uint8)),
+                      ("seg_maps", rng.randint(0, 8, (64, 64)).astype(np.uint8)),
+                      ("instance_maps", ids)):
+        (tmp_path / kind / "seq0").mkdir(parents=True)
+        png.write_png(tmp_path / kind / "seq0" / "00000.png", arr)
+    overrides = {"data": {
+        "input_types": [{"images": {"ext": "png", "num_channels": 3,
+                                    "interpolator": "BILINEAR", "normalize": True}},
+                        {"seg_maps": {"ext": "png", "num_channels": 8,
+                                      "interpolator": "NEAREST", "normalize": False,
+                                      "is_mask": True}},
+                        {"instance_maps": {"ext": "png", "num_channels": 1,
+                                           "interpolator": "NEAREST",
+                                           "normalize": False}}],
+        "train": {"roots": [str(tmp_path)], "augmentations": {"resize_h_w": "64, 64"}},
+        "val": {"roots": [str(tmp_path)]}}}
+    unit = "configs/unit_test/pix2pixHD.yaml"
+    item = port_item(Dataset(Config(unit, overrides=overrides)), 0, random.Random(0))
+    random.seed(0)
+    jitem = JaxDataset(JaxConfig(unit, overrides=overrides))[0]
+    np.testing.assert_array_equal(item["label"][..., -1], ids.astype(np.float32))
+    np.testing.assert_array_equal(item["label"], jitem["label"])
+
+
 def test_png_refuses_what_it_cannot_read():
-    ok, buf16 = cv2.imencode(".png", np.zeros((4, 4), np.uint16))
-    with pytest.raises(NotImplementedError, match="bit depth 16"):
-        png.decode_png(buf16.tobytes(), "deep.png")
+    header = struct.pack(">IIBBBBB", 4, 4, 8, 0, 0, 0, 1)  # Adam7 interlace
+    interlaced = (png.PNG_SIGNATURE + struct.pack(">I", 13) + b"IHDR" + header
+                  + struct.pack(">I", zlib.crc32(b"IHDR" + header))
+                  + struct.pack(">I", 0) + b"IEND" + struct.pack(">I", zlib.crc32(b"IEND")))
+    with pytest.raises(NotImplementedError, match="interlace 1"):
+        png.decode_png(interlaced, "interlaced.png")
     buf = bytearray(png.encode_png(np.zeros((4, 4), np.uint8)))
     buf[40] ^= 0xFF  # inside IDAT
     with pytest.raises(ValueError, match="CRC"):

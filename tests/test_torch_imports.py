@@ -4,7 +4,8 @@
 Flax or the JAX package (not even its yaml-only modules), and the
 package must import on a machine with no CUDA toolkit and no Triton:
 kernels are built at first use, never at import. The GPU machine also
-has no OpenCV, PIL, torchvision, TensorBoard or LMDB: no port file
+has no OpenCV, PIL, torchvision, TensorBoard, LMDB or scikit-learn
+(pix2pixHD's K-means is the port's own): no port file
 imports them, except one lazy OpenCV import, named below, in the branch
 that decodes JPEG (and other formats the port's PNG codec does not
 read).
@@ -21,8 +22,8 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "imaginaire_tpu")
 PORT_FILES = sorted((REPO / "imaginaire_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
-GPU_MACHINE_LACKS = ("cv2", "PIL", "torchvision", "tensorboard", "lmdb")
+    REPO / "chip_smoke.py"] + sorted((REPO / "scripts").glob("torch_*.py"))
+GPU_MACHINE_LACKS = ("cv2", "PIL", "torchvision", "tensorboard", "lmdb", "sklearn")
 # (file, function) of the one allowed import of any of them
 LAZY_OPENCV_IMPORT = ("imaginaire_tpu_torch/data/backends.py", "_decode_with_opencv")
 

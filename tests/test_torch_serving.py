@@ -156,4 +156,10 @@ def test_config_types_resolve_to_the_port():
     assert registry.resolve("imaginaire_tpu.trainers.vid2vid", "Trainer") \
         .__module__ == "imaginaire_tpu_torch.trainers.vid2vid"
     with pytest.raises(ModuleNotFoundError, match="ROADMAP"):
-        registry.resolve("imaginaire_tpu.trainers.pix2pixHD", "Trainer")
+        registry.resolve("imaginaire_tpu.trainers.unit", "Trainer")
+
+
+def test_engine_refuses_pix2pixHD():
+    """The trainer is ported; serving it is not (ROADMAP.md A.5)."""
+    with pytest.raises(ServingError, match="ROADMAP"):
+        engine_from_config(Config("configs/unit_test/pix2pixHD.yaml"), device="cpu")

@@ -285,6 +285,19 @@ def test_every_candidate_corrupt_raises(tmp_path):
     assert ckpt_lib.load_latest_verified(str(tmp_path / "fresh")) == (None, None, 0)
 
 
+def test_save_records_the_digest_of_the_file_it_wrote(tmp_path):
+    """The file's digest taken while ``torch.save`` writes equals one read
+    back from the disk; the tensors' records equal a serial pass."""
+    state = {"w": torch.randn(300, 200), "h": torch.randn(7).bfloat16(),
+             "n": torch.tensor(5), "rng": torch.Generator().manual_seed(1).get_state()}
+    path = ckpt_lib.save_checkpoint(str(tmp_path), state, {"epoch": 0}, 0, 1)
+    record = ckpt_lib.read_integrity_sidecar(path)
+    assert record["files"] == integrity.file_digests(path)
+    assert record["leaves"] == {k: integrity.tensor_record(v) for k, v in state.items()}
+    loaded = ckpt_lib.load_checkpoint(path)["state"]
+    assert all(torch.equal(loaded[k], v) for k, v in state.items())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int64, torch.uint8])
 def test_tree_checksums_catch_a_changed_tensor(dtype):
     tree = {"a": torch.arange(6).reshape(2, 3).to(dtype), "b": torch.tensor(3, dtype=dtype)}
