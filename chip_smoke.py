@@ -105,7 +105,9 @@ Phases, one line each; any failure exits non-zero:
    generator's flow network moves and the checkpoint's files verify; one
    iteration is profiled; one fp32 warp-frame G step (TF32 off) through
    the kernels is held within 1e-3 to the same step through their plain
-   versions. The median iteration and frames/s (``speed_benchmark``), D
+   versions (``fp32_warp_g_step``: the teacher's flow and conf held on
+   their own first, then both steps on the kernels' teacher output, as
+   the flow cache hands it over). The median iteration and frames/s (``speed_benchmark``), D
    and G step ms by frame type, peak memory, the host's data wait and
    the checkpoint's bytes and save seconds are printed;
 10. SPADE evaluation (``spade_eval_entry``): Inception-v3 at its real
@@ -195,7 +197,7 @@ Phases, one line each; any failure exits non-zero:
    ``Guidance``, the point cloud grows within each clip, the flow network
    moves and the checkpoint verifies; one fp32 warp-frame G step with
    guidance (TF32 off) through the kernels is held within 1e-3 of the
-   same step through their plain versions, and under
+   same step through their plain versions (as in phase 9), and under
    ``gen.guidance.partial_conv`` (with ``partial`` SPADE norms) one fp32
    warp-frame forward likewise; ``imaginaire_tpu_torch.inference.main``
    writes every frame of both sequences (finite, in [-1, 1]; resample2d
@@ -228,7 +230,31 @@ Phases, one line each; any failure exits non-zero:
    images/s, the data wait, peak memory, the checkpoint's bytes and save
    seconds, the inference and K-means seconds and the phase's seconds
    are printed;
-15. a ``phase_seconds`` line, a ``kernels`` JSON line, the nvidia-smi
+15. UNIT and MUNIT (``unpaired_entry``, after phase 14): for each of
+   configs/projects/munit/afhq_dog2cat/bf16.yaml (nf 64, a 256-wide MLP,
+   the residual D; bf16, the averaged copy) and
+   configs/projects/unit/winter2summer/base48_bs1.yaml (nf 48, the
+   3-scale weight-shared patch D, least_square; fp32) a seeded packed
+   unpaired dataset (RGB PNG, 288x320, 4 + 3 training and 2 + 2
+   validation images in domains A + B, each domain's own file list),
+   ``ext: png``, ``max_iter`` 2 and a checkpoint at 2, a test split
+   copied from the val split. ``imaginaire_tpu_torch.train.main`` trains
+   2 iterations in-process (batch 1, 256x256 crops; parameter counts as
+   the CPU tests count them), the losses are finite and the checkpoint
+   verifies; ``imaginaire_tpu_torch.inference.main`` translates each test
+   item A into B from a verified load of it (the config's
+   ``inference_args``): finite outputs, and PNGs that are the outputs
+   clipped to [-1, 1] (the configs set no output nonlinearity, in both
+   packages). Then one fp32 MUNIT generator forward at full width, batch
+   1, 256x256, every output of the training forward with injected style
+   codes, on the card (TF32 off) against the port's CPU forward at the
+   same weights (relative L2 per output, gate 1e-4). No kernel runs:
+   the six launch counters are reset just before and read just after
+   each run, and every count must be 0. Parameters, the first and warm
+   iteration ms, D and G step ms, peak memory, the checkpoint's bytes and
+   save seconds, the inference seconds and the phase's seconds are
+   printed;
+16. a ``phase_seconds`` line, a ``kernels`` JSON line, the nvidia-smi
    line, and the final JSON line.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -1541,6 +1567,19 @@ P2P_CADENCES = {"logging_iter": 1, "snapshot_save_epoch": 1000, "image_save_iter
                 "trainer": {"speed_benchmark": True}}
 P2P_G_PARAMS, P2P_D_PARAMS = 182_589_507, 3_156_482
 P2P_ENC_ITEMS, P2P_ENC_HW = 2, (128, 128)
+UNPAIRED_CONFIGS = {"munit": REPO / "configs/projects/munit/afhq_dog2cat/bf16.yaml",
+                    "unit": REPO / "configs/projects/unit/winter2summer/base48_bs1.yaml"}
+UNPAIRED_ITEMS = {"train": (4, 3), "val": (2, 2)}  # domain A, domain B
+UNPAIRED_HW = (288, 320)  # the configs resize the smaller side to 256, then crop 256
+UNPAIRED_ITERATIONS = 2
+UNPAIRED_FORCED = {"max_iter": UNPAIRED_ITERATIONS,
+                   "snapshot_save_iter": UNPAIRED_ITERATIONS}
+UNPAIRED_CADENCES = {"logging_iter": 1, "snapshot_save_epoch": 1000,
+                     "image_save_iter": 1000, "trainer": {"speed_benchmark": True}}
+# (G, D) as tests/test_torch_unpaired.py counts them against the JAX trees
+UNPAIRED_PARAMS = {"munit": (30_258_966, 32_322_498), "unit": (12_555_654, 5_295_042)}
+UNPAIRED_DTYPES = {"munit": torch.bfloat16, "unit": torch.float32}
+TOL_UNPAIRED_FWD = 1e-4
 
 class HostClocks:
     """Per-iteration host accounting of the training loop: wall time,
@@ -2100,6 +2139,88 @@ def reset_video_launches(rs, corr, cn):
     rs.launches = rs.bwd_launches = corr.launches = cn.launches = 0
 
 
+def fp32_warp_g_step(trainer, data_t, rs, corr, cn, tol):
+    """One fp32 warp-frame G step (TF32 off; the caller sets fp32) through
+    the kernels against the same step through their plain versions, from
+    one saved state. The teacher's (flow, conf) for the step's frame pair
+    is computed both ways first and held on its own: its flow against the
+    plain version's (``TOL_TEACHER_REL`` of the flow's magnitude), its conf
+    against the threshold of the plain warp by its own flow (no pixel
+    apart, as in phase 6). conf thresholds a warp error, so a rounding-level
+    difference upstream flips the pixels lying at the threshold, and a
+    loss weighted by conf jumps with them; both steps therefore read the
+    kernels' (flow, conf) as the flow cache hands it to a step, and each
+    of their losses and the grad norm is a continuous function of the
+    kernels' outputs, held within ``tol`` relative. The launches of the
+    kernels' step are the teacher's plus the step's own."""
+    from imaginaire_tpu_torch.flow.flow_net import CONF_THRESHOLD
+
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        im_a, im_b = data_t["image"].float(), data_t["real_prev_image"].float()
+        reset_video_launches(rs, corr, cn)
+        with torch.no_grad():
+            flow, conf = trainer._teacher_flow(im_a, im_b)
+        teacher_launches = video_launches(rs, corr, cn)
+        reset_video_launches(rs, corr, cn)
+        with torch.no_grad(), plain_kernels():
+            flow_plain, conf_plain = trainer._teacher_flow(im_a, im_b)
+        plain_teacher_launches = video_launches(rs, corr, cn)
+        flow_rel = ((flow - flow_plain).abs().max()
+                    / flow_plain.abs().max().clamp_min(1e-30)).item()
+        warped = rs.resample2d_plain(im_b, flow)
+        want = (((im_a - warped) ** 2).sum(1, keepdim=True) < CONF_THRESHOLD).float()
+        conf_err = int((want != conf).sum().item())
+        conf_flips = float((conf != conf_plain).float().mean())
+        teacher = {"flow_rel": flow_rel, "flow_max": flow_plain.abs().max().item(),
+                   "conf_mean": float(conf.mean()), "conf_vs_plain_warp_mismatches": conf_err,
+                   "conf_flip_share_vs_plain_teacher": conf_flips,
+                   "launches": teacher_launches}
+        del flow_plain, conf_plain, warped, want
+        want_teacher = dict(TEACHER_LAUNCHES, resample2d_bwd=0)
+        if teacher_launches != want_teacher or any(plain_teacher_launches.values()) \
+                or not flow_rel <= TOL_TEACHER_REL or conf_err:
+            raise AssertionError(
+                f"fp32 warp-frame teacher, kernels vs plain versions: flow {flow_rel} of "
+                f"its magnitude (tol {TOL_TEACHER_REL}), conf off the plain warp's "
+                f"threshold at {conf_err} pixels; launches {teacher_launches} (expected "
+                f"{want_teacher}) / {plain_teacher_launches}")
+
+        data_t = dict(data_t, flow_gt=flow, conf_gt=conf)
+        snap = _snapshot(trainer)
+
+        def g_step():
+            losses = trainer._step(trainer.net_G, trainer.opt_G,
+                                   lambda: trainer.gen_forward(data_t)[0], None, "gen_step")
+            return {k: float(v) for k, v in losses.items()}
+
+        reset_video_launches(rs, corr, cn)
+        kernel_step = g_step()
+        step_launches = video_launches(rs, corr, cn)
+        _restore(trainer, snap)
+        reset_video_launches(rs, corr, cn)
+        with plain_kernels():
+            plain_step = g_step()
+        plain_launches = video_launches(rs, corr, cn)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    rel = {k: abs(kernel_step[k] - plain_step[k]) / max(abs(plain_step[k]), 1e-30)
+           for k in plain_step}
+    worst = max(rel, key=rel.get)
+    if step_launches != {"resample2d": 1, "resample2d_bwd": 1, "correlation": 0,
+                         "channelnorm": 0} \
+            or any(plain_launches.values()) or rel[worst] > tol \
+            or not {"Flow_L1", "Flow_Warp", "Flow_Mask"} <= set(plain_step):
+        raise AssertionError(
+            f"fp32 warp-frame G step through the kernels vs their plain versions "
+            f"(the kernels' teacher output in both): {worst} differs by {rel[worst]} "
+            f"(tol {tol}); losses {sorted(plain_step)}; launches {step_launches} / "
+            f"{plain_launches}")
+    return {"kernels": kernel_step, "plain": plain_step, "worst_rel": [worst, rel[worst]],
+            "launches": {k: teacher_launches[k] + step_launches[k] for k in step_launches},
+            "teacher": teacher}
+
+
 def vid2vid_train_entry(rs, corr, cn, device="cuda", overrides=None,
                         hw=V2V_ENTRY_HW, iterations=V2V_ENTRY_ITERATIONS, workdir=None):
     """Phase 9: ``python -m imaginaire_tpu_torch.train`` in-process on a
@@ -2206,42 +2327,14 @@ def vid2vid_train_entry(rs, corr, cn, device="cuda", overrides=None,
 
         # in situ: one fp32 warp-frame G step (TF32 off) through the kernels
         # against the same step through their plain versions
-        torch.backends.cudnn.allow_tf32 = False
         trainer.compute_dtype = torch.float32
         gen = torch.Generator(device=device).manual_seed(9)
         data_t = trainer._get_data_t(data, 2, data["label"][:, :2],
                                      torch.tanh(torch.randn(data["images"][:, :2].shape,
                                                             generator=gen, device=device)))
         data_t["past_stacks"] = {}
-        snap = _snapshot(trainer)
-
-        def g_step():
-            losses = trainer._step(trainer.net_G, trainer.opt_G,
-                                   lambda: trainer.gen_forward(data_t)[0],
-                                   None, "gen_step")
-            return {k: float(v) for k, v in losses.items()}
-
-        reset_video_launches(rs, corr, cn)
-        kernel_step = g_step()
-        step_launches = video_launches(rs, corr, cn)
-        _restore(trainer, snap)
-        reset_video_launches(rs, corr, cn)
-        with plain_kernels():
-            plain_step = g_step()
-        plain_launches = video_launches(rs, corr, cn)
-        torch.backends.cudnn.allow_tf32 = True
-        rel = {k: abs(kernel_step[k] - plain_step[k]) / max(abs(plain_step[k]), 1e-30)
-               for k in plain_step}
-        worst = max(rel, key=rel.get)
-        if step_launches != {"resample2d": 6, "resample2d_bwd": 1, "correlation": 1,
-                             "channelnorm": 6} \
-                or any(plain_launches.values()) or rel[worst] > TOL_V2V_STEP_REL \
-                or not {"Flow_L1", "Flow_Warp", "Flow_Mask"} <= set(plain_step):
-            raise AssertionError(
-                f"fp32 warp-frame G step through the kernels vs their plain "
-                f"versions: {worst} differs by {rel[worst]} (tol {TOL_V2V_STEP_REL}); "
-                f"launches {step_launches} / {plain_launches}")
-        del trainer, snap, data, data_t
+        step = fp32_warp_g_step(trainer, data_t, rs, corr, cn, TOL_V2V_STEP_REL)
+        del trainer, data, data_t
         if cuda:
             torch.cuda.empty_cache()
     seq = V2V_ENTRY_SEQ
@@ -2267,9 +2360,9 @@ def vid2vid_train_entry(rs, corr, cn, device="cuda", overrides=None,
            "launches_per_iteration": V2V_ENTRY_LAUNCHES, "flow_net_moved": flow_moved,
            "checkpoint_bytes": sum(integrity["files"][f]["size"] for f in integrity["files"]),
            "checkpoint_save_s": saves, "checkpoint_files_verify_s": verify_s,
-           "fp32_step_kernels": kernel_step, "fp32_step_plain": plain_step,
-           "fp32_worst_rel": [worst, rel[worst]], "fp32_step_launches": step_launches,
-           "iteration": breakdown}
+           "fp32_step_kernels": step["kernels"], "fp32_step_plain": step["plain"],
+           "fp32_worst_rel": step["worst_rel"], "fp32_step_launches": step["launches"],
+           "fp32_step_teacher": step["teacher"], "iteration": breakdown}
     phase("vid2vid_train_entry", **{k: v for k, v in row.items() if k != "iteration"})
     if isinstance(breakdown, dict):
         phase("vid2vid_train_profile", **{k: breakdown[k] for k in (
@@ -3260,34 +3353,11 @@ def wc_vid2vid_entry(rs, spade_mod, corr, cn, device="cuda", overrides=None, hw=
                 for k, v in data.items()}
         data_t = wc_warp_frame(trainer, data)
         guidance_valid = float(data_t["guidance"][:, 3].mean())
-        snap = _snapshot(trainer)
-
-        def g_step():
-            out = trainer._step(trainer.net_G, trainer.opt_G,
-                                lambda: trainer.gen_forward(data_t)[0], None, "gen_step")
-            return {k: float(v) for k, v in out.items()}
-
-        reset_video_launches(rs, corr, cn)
-        kernel_step = g_step()
-        step_launches = video_launches(rs, corr, cn)
-        _restore(trainer, snap)
-        reset_video_launches(rs, corr, cn)
-        with plain_kernels():
-            plain_step = g_step()
-        plain_launches = video_launches(rs, corr, cn)
-        torch.backends.cudnn.allow_tf32 = True
-        rel = {k: abs(kernel_step[k] - plain_step[k]) / max(abs(plain_step[k]), 1e-30)
-               for k in plain_step}
-        worst = max(rel, key=rel.get)
-        if step_launches != {"resample2d": 6, "resample2d_bwd": 1, "correlation": 1,
-                             "channelnorm": 6} \
-                or any(plain_launches.values()) or rel[worst] > TOL_WC_STEP_REL \
-                or not kernel_step.get("Guidance", 0) > 0 or not guidance_valid > 0:
-            raise AssertionError(
-                f"fp32 warp-frame G step with guidance (valid share {guidance_valid}), "
-                f"kernels vs plain versions: {worst} differs by {rel[worst]} (tol "
-                f"{TOL_WC_STEP_REL}); launches {step_launches} / {plain_launches}")
-        del trainer, snap, data
+        step = fp32_warp_g_step(trainer, data_t, rs, corr, cn, TOL_WC_STEP_REL)
+        if not step["kernels"].get("Guidance", 0) > 0 or not guidance_valid > 0:
+            raise AssertionError(f"fp32 warp-frame G step with guidance: valid share "
+                                 f"{guidance_valid}, losses {step['kernels']}")
+        del trainer, data
         if cuda:
             torch.cuda.empty_cache()
         partial = wc_partial_route(rs, cfg_path, data_t, device)
@@ -3358,9 +3428,10 @@ def wc_vid2vid_entry(rs, spade_mod, corr, cn, device="cuda", overrides=None, hw=
            "guidance_loss": guidance_loss, "flow_net_moved": flow_moved,
            "checkpoint_bytes": sum(integrity["files"][f]["size"] for f in integrity["files"]),
            "checkpoint_save_s": saves, "guidance_valid_share": guidance_valid,
-           "fp32_step_kernels": kernel_step, "fp32_step_plain": plain_step,
-           "fp32_worst_rel": [worst, rel[worst]], "fp32_step_launches": step_launches,
-           "partial_conv": partial, "inference_s": [r[1] for r in runs],
+           "fp32_step_kernels": step["kernels"], "fp32_step_plain": step["plain"],
+           "fp32_worst_rel": step["worst_rel"], "fp32_step_launches": step["launches"],
+           "fp32_step_teacher": step["teacher"], "partial_conv": partial,
+           "inference_s": [r[1] for r in runs],
            "inference_launches": runs[0][2], "inference_frames": len(frames0),
            "inference_bit_equal": same,
            "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2**30 if cuda
@@ -3674,6 +3745,256 @@ def pix2pixHD_entry(rs, spade_mod, corr, cn, device="cuda", overrides=None, hw=P
            "peak_mem_gib": peak, "phase_s": time.perf_counter() - t_phase,
            "nvidia_smi": nvidia_smi() if cuda else "not measured"}
     phase("pix2pixHD_entry", **row)
+    return row
+
+
+def write_unpaired_dataset(root, hw=UNPAIRED_HW, seed=ENTRY_SEED):
+    """Phase 15's raw folders ``root/{train,val}/{images_a,images_b}/
+    seq0000/<i>.png`` (seeded smooth RGB images, domain B's of another
+    hue), packed by the port's builder into ``root/packed_{train,val}``,
+    each domain with its own file list. Returns {split: packed root}."""
+    from imaginaire_tpu_torch.data.backends import build_packed_dataset
+    from imaginaire_tpu_torch.data.png import write_png
+
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    packed = {}
+    for split, counts in UNPAIRED_ITEMS.items():
+        raw = root / split
+        for domain, n, tint in (("images_a", counts[0], (1.0, 0.6, 0.3)),
+                                ("images_b", counts[1], (0.3, 0.6, 1.0))):
+            (raw / domain / "seq0000").mkdir(parents=True, exist_ok=True)
+            for i in range(n):
+                waves = sum(np.sin(xs * rng.uniform(0.01, 0.08) + ys * rng.uniform(0.01, 0.08)
+                                   + rng.uniform(0, 6.3)) for _ in range(3)) / 3
+                img = np.stack([(0.5 + 0.4 * waves * t) for t in tint], axis=-1)
+                img = img + rng.normal(0, 0.03, img.shape)
+                write_png(raw / domain / "seq0000" / f"{i:05d}.png",
+                          np.clip(img * 255, 0, 255).astype(np.uint8))
+        packed[split] = build_packed_dataset(str(raw), str(root / f"packed_{split}"),
+                                             ["images_a", "images_b"])
+    return packed
+
+
+def unpaired_fp32_forward(device="cuda", hw=(256, 256)):
+    """One fp32 MUNIT generator forward of the AFHQ config at full width on
+    ``device`` (TF32 off) against the port's CPU forward at the same
+    seeded weights, the style codes injected: every output of the
+    training forward (reconstructions, translations, re-encodings, the
+    cycle). Returns the worst relative L2 and the device's ms."""
+    from imaginaire_tpu_torch.config import Config
+    from imaginaire_tpu_torch.models.generators.munit import Generator
+    from imaginaire_tpu_torch.utils.init_weight import init_weights
+
+    cfg = Config(UNPAIRED_CONFIGS["munit"])
+    torch.manual_seed(0)
+    cpu_net = Generator(cfg.gen, cfg.data)
+    init_weights(cpu_net, torch.Generator().manual_seed(ENTRY_SEED), "orthogonal", 1.0)
+    cpu_net.eval()
+    gen = torch.Generator().manual_seed(ENTRY_SEED + 1)
+    data = {k: torch.rand((1, 3) + tuple(hw), generator=gen) * 2 - 1
+            for k in ("images_a", "images_b")}
+    noise = tuple(torch.randn((1, cpu_net.autoencoder_a.style_channels), generator=gen)
+                  for _ in range(2))
+    net = Generator(cfg.gen, cfg.data).to(device).eval()
+    net.load_state_dict(cpu_net.state_dict())
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = cpu_net(data, noise=noise)
+            dev_data = {k: v.to(device) for k, v in data.items()}
+            dev_noise = tuple(z.to(device) for z in noise)
+            got = net(dev_data, noise=dev_noise)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            net(dev_data, noise=dev_noise)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    errs = {}
+    for k, w in want.items():
+        g = got[k].float().cpu()
+        errs[k] = float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w))
+    return errs, ms
+
+
+def unpaired_entry(rs, spade_mod, corr, cn, device="cuda", overrides=None, hw=UNPAIRED_HW,
+                   fwd_hw=(256, 256)):
+    """Phase 15: UNIT and MUNIT at their committed configs' widths through
+    ``imaginaire_tpu_torch.train.main`` (2 iterations, a checkpoint) and
+    ``.inference.main`` from a verified load of it, on seeded packed
+    unpaired datasets; then one fp32 MUNIT generator forward on the card
+    against the CPU. No kernel of the port runs: every launch count must
+    stay 0."""
+    import gc
+
+    from imaginaire_tpu_torch import inference, train
+    from imaginaire_tpu_torch.config import recursive_update
+    from imaginaire_tpu_torch.data.png import decode_png
+    from imaginaire_tpu_torch.registry import resolve
+    from imaginaire_tpu_torch.resilience.integrity import verify_files
+    from imaginaire_tpu_torch.utils import checkpoint as ckpt_lib
+    from imaginaire_tpu_torch.utils.meters import ScalarWriter
+
+    cuda = device == "cuda"
+    torch.backends.cudnn.allow_tf32 = True  # training runs the defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    rows = {}
+    with tempfile.TemporaryDirectory(prefix="unpaired_entry_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        packed = write_unpaired_dataset(tmp, hw=hw)
+        data_s = time.perf_counter() - t0
+        for family, base in UNPAIRED_CONFIGS.items():
+            def edit(cfg):
+                for split in ("train", "val"):
+                    cfg["data"][split]["roots"] = [packed[split]]
+                for entry in cfg["data"]["input_types"]:
+                    for info in entry.values():
+                        info["ext"] = "png"
+                for section in (UNPAIRED_FORCED, UNPAIRED_CADENCES,
+                                (overrides or {}).get(family, {})):
+                    recursive_update(cfg, copy.deepcopy(section))
+
+            cfg_path = p2p_config(tmp, base, edit, f"{family}.yaml")
+            trainer_cls = resolve(f"imaginaire_tpu.trainers.{family}", "Trainer")
+            logdir = tmp / f"{family}_log"
+            saves, save = [], trainer_cls.save_checkpoint
+
+            def timed_save(self, *a, _save=save, **k):
+                t = time.perf_counter()
+                path = _save(self, *a, **k)
+                saves.append(time.perf_counter() - t)
+                return path
+
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            reset_all_launches(rs, corr, cn, spade_mod)
+            trainer_cls.save_checkpoint = timed_save
+            try:
+                t0 = time.perf_counter()
+                trainer = train.main(["--config", str(cfg_path), "--logdir", str(logdir),
+                                      "--seed", str(ENTRY_SEED), "--device", device])
+                train_s = time.perf_counter() - t0
+            finally:
+                trainer_cls.save_checkpoint = save
+            train_peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else "not measured"
+            launches = all_launches(rs, corr, cn, spade_mod)
+            params = (sum(p.numel() for p in trainer.net_G.parameters()),
+                      sum(p.numel() for p in trainer.net_D.parameters()))
+            if any(launches.values()) or trainer.current_iteration != UNPAIRED_ITERATIONS \
+                    or trainer.compute_dtype != UNPAIRED_DTYPES[family] \
+                    or params != UNPAIRED_PARAMS[family]:
+                raise AssertionError(f"{family} training entry: launches {launches} (all 0 "
+                                     f"expected), iterations {trainer.current_iteration}, "
+                                     f"compute dtype {trainer.compute_dtype}, params {params}")
+            scalars = [r for r in ScalarWriter(logdir).read() if r["kind"] == "counter"
+                       and r["name"].split("/")[0] in ("gen_update", "dis_update")]
+            names = {r["name"] for r in scalars}
+            bad = [r for r in scalars if not np.isfinite(r["value"])]
+            want_terms = {f"gen_update/{k}" for k in trainer.weights if k not in
+                          ("gp", "consistency_reg")} | {"dis_update/gan", "gen_update/total"}
+            if bad or not want_terms <= names:
+                raise AssertionError(f"{family} meters.jsonl: {sorted(names)}, non-finite "
+                                     f"{bad[:5]}, expected {sorted(want_terms)}")
+            checkpoint = ckpt_lib.latest_checkpoint_path(str(logdir))
+            integrity = ckpt_lib.read_integrity_sidecar(checkpoint)
+            t0 = time.perf_counter()
+            verify_files(checkpoint, integrity["files"], context=checkpoint)
+            verify_s = time.perf_counter() - t0
+            if ckpt_lib.parse_checkpoint_name(checkpoint)[1] != UNPAIRED_ITERATIONS \
+                    or integrity["n_leaves"] != len(trainer.state_tensors()):
+                raise AssertionError(f"checkpoint {checkpoint}: {integrity['n_leaves']} records")
+            timings = {k: [t * 1e3 for t in v] for k, v in trainer.timings.items()}
+            weights = sorted(trainer.weights)
+            del trainer
+            if cuda:
+                torch.cuda.empty_cache()
+
+            # inference through the entry from a verified load of the checkpoint
+            kept, forward = [], trainer_cls.inference_forward
+
+            def keep(self, *a, _forward=forward, **k):
+                out = _forward(self, *a, **k)
+                kept.append(out.detach().float().cpu())
+                return out
+
+            out_dir = tmp / f"{family}_out"
+            reset_all_launches(rs, corr, cn, spade_mod)
+            trainer_cls.inference_forward = keep
+            try:
+                t0 = time.perf_counter()
+                inference.main(["--config", str(cfg_path), "--checkpoint", checkpoint,
+                                "--output_dir", str(out_dir), "--logdir",
+                                str(tmp / f"{family}_inference"), "--seed", str(ENTRY_SEED),
+                                "--device", device])
+                inference_s = time.perf_counter() - t0
+            finally:
+                trainer_cls.inference_forward = forward
+            inf_launches = all_launches(rs, corr, cn, spade_mod)
+            pngs = sorted(out_dir.rglob("*.png"))
+            n_test = max(UNPAIRED_ITEMS["val"])
+            if len(pngs) != n_test or len(kept) != n_test or any(inf_launches.values()) \
+                    or not all(torch.isfinite(f).all() for f in kept):
+                raise AssertionError(f"{family} inference: {len(pngs)} PNGs, {len(kept)} "
+                                     f"outputs, launches {inf_launches}")
+            # each PNG is its output clipped to [-1, 1] (one 8-bit level)
+            written = sorted(((str(p), decode_png(p.read_bytes())) for p in pngs))
+            clip_err = 0.0
+            for out, (_, img) in zip(kept, written):
+                want = (out[0].clamp(-1, 1).permute(1, 2, 0).numpy() + 1) * 127.5
+                if img.shape != want.shape:
+                    raise AssertionError(f"{family} inference PNG {img.shape}, output "
+                                         f"{want.shape}")
+                clip_err = max(clip_err, float(np.abs(img - want).max()))
+            if clip_err > 1.0 + 1e-3:
+                raise AssertionError(f"{family} PNGs differ from the clipped outputs by "
+                                     f"{clip_err} levels")
+            warm = timings["iteration"][1:]
+            rows[family] = {
+                "config": str(base.relative_to(REPO)), "compute_dtype": str(
+                    UNPAIRED_DTYPES[family]).removeprefix("torch."),
+                "generator_params": params[0], "discriminator_params": params[1],
+                "loss_weights": weights, "train_s": train_s,
+                "iterations": UNPAIRED_ITERATIONS, "batch": 1,
+                "iteration_ms": timings["iteration"],
+                "first_iteration_ms": timings["iteration"][0],
+                "warm_iteration_ms": float(np.median(warm)),
+                "first_dis_step_ms": timings["dis_step"][0],
+                "first_gen_step_ms": timings["gen_step"][0],
+                "warm_dis_step_ms": float(np.median(timings["dis_step"][1:])),
+                "warm_gen_step_ms": float(np.median(timings["gen_step"][1:])),
+                "data_wait_ms": timings["data_wait"], "launches": launches,
+                "train_peak_mem_gib": train_peak,
+                "checkpoint_bytes": sum(f["size"] for f in integrity["files"].values()),
+                "checkpoint_save_s": saves, "checkpoint_files_verify_s": verify_s,
+                "inference_s": inference_s, "inference_items": len(kept),
+                "inference_launches": inf_launches,
+                "inference_max_abs": max(float(f.abs().max()) for f in kept),
+                "png_vs_clipped_output_levels": clip_err}
+    reset_all_launches(rs, corr, cn, spade_mod)
+    errs, fwd_ms = unpaired_fp32_forward(device, hw=fwd_hw)
+    fwd_launches = all_launches(rs, corr, cn, spade_mod)
+    worst = max(errs.values())
+    if any(fwd_launches.values()) or not worst <= TOL_UNPAIRED_FWD:
+        raise AssertionError(f"fp32 MUNIT forward: card vs CPU {errs} (gate "
+                             f"{TOL_UNPAIRED_FWD}), launches {fwd_launches}")
+    row = {"hw": list(hw), "items": UNPAIRED_ITEMS, "data_s": data_s, **rows,
+           "fp32_forward": {"hw": list(fwd_hw), "max_rel_l2": worst, "rel_l2": errs,
+                            "card_ms": fwd_ms, "launches": fwd_launches},
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda
+           else "not measured",
+           "phase_s": time.perf_counter() - t_phase,
+           "nvidia_smi": nvidia_smi() if cuda else "not measured"}
+    phase("unpaired_entry", **row)
     return row
 
 
@@ -4194,12 +4515,21 @@ def main():
     fs_train, fs_hyper = fs["launches"], fs["hyper"]
     wc = timed(wc_vid2vid_entry, rs, spade_mod, corr, cn)
     p2p = timed(pix2pixHD_entry, rs, spade_mod, corr, cn)
+    unpaired = timed(unpaired_entry, rs, spade_mod, corr, cn)
     phase("phase_seconds", **seconds, total=time.perf_counter() - t0)
 
     def p2p_launches(name):
         """pix2pixHD (phase 14): plain instance norms, no kernel."""
         return {"train": p2p["launches"][name], "inference": p2p["inference_launches"][name],
                 "encoder_path": p2p["encoder_path"]["launches"][name]}
+
+    def unpaired_launches(name):
+        """UNIT and MUNIT (phase 15): instance norms and AdaIN, no kernel."""
+        out = {f"{family}_{part}": unpaired[family][key][name]
+               for family in UNPAIRED_CONFIGS
+               for part, key in (("train", "launches"), ("inference", "inference_launches"))}
+        out["fp32_forward"] = unpaired["fp32_forward"]["launches"][name]
+        return out
 
     def per_call_set(table, dtype, path="spade"):
         sel = [r for r in table if r["dtype"].startswith(dtype) and r["path"] == path]
@@ -4225,6 +4555,7 @@ def main():
         # wc-vid2vid (phase 13): BatchNorm bases everywhere
         "wc_launches": {"train": wc["launches"]["spade_modulation"]},
         "p2p_launches": p2p_launches("spade_modulation"),
+        "unpaired_launches": unpaired_launches("spade_modulation"),
         # the hyper route's 12 calls of a batch-1 forward at 512x512, fp32
         "fs_forward": per_call_set(rows, "float32", "fs"),
         # the 19 calls of one bs-4 generator forward, fp32, n_pairs 1
@@ -4237,6 +4568,7 @@ def main():
                         "train": 0},
         "wc_launches": {"train": 0},
         "p2p_launches": p2p_launches("spade_modulation_bwd"),
+        "unpaired_launches": unpaired_launches("spade_modulation_bwd"),
         "fs_backward": per_call_set(bwd_rows, "bfloat16", "fs"),
         # the 19 calls of one G step's backward, bf16 (the training path's
         # type), n_pairs 1; max_abs_err is the fp32 checks' worst error
@@ -4263,6 +4595,7 @@ def main():
                         "partial_conv_forward": wc["partial_conv"]["launches"]["kernel"],
                         "inference": wc["inference_launches"]["resample2d"]},
         "p2p_launches": p2p_launches("resample2d"),
+        "unpaired_launches": unpaired_launches("resample2d"),
         # one warp of the previous (1, 3, 512, 1024) frame, fp32, mixed flow
         **{key: rs_rows[0][key] for key in
            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}, {
@@ -4275,6 +4608,7 @@ def main():
         "wc_launches": {"train": wc["launches"]["resample2d_bwd"],
                         "fp32_g_step": wc["fp32_step_launches"]["resample2d_bwd"]},
         "p2p_launches": p2p_launches("resample2d_bwd"),
+        "unpaired_launches": unpaired_launches("resample2d_bwd"),
         # the training warp's backward of (2, 3, 512, 1024) frames, bf16 (the
         # path's type), dflow alone (the path's), mixed flow; max_abs_err is
         # dflow's (0: bit for bit) and the fp32 dx checks' worst over the
@@ -4290,6 +4624,7 @@ def main():
         "wc_launches": {"train": wc["launches"]["correlation"],
                         "fp32_g_step": wc["fp32_step_launches"]["correlation"]},
         "p2p_launches": p2p_launches("correlation"),
+        "unpaired_launches": unpaired_launches("correlation"),
         # the one call of a FlowNet2 forward of one frame pair, fp32
         **{key: corr_rows[0][key] for key in
            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}, {
@@ -4301,6 +4636,7 @@ def main():
         "wc_launches": {"train": wc["launches"]["channelnorm"],
                         "fp32_g_step": wc["fp32_step_launches"]["channelnorm"]},
         "p2p_launches": p2p_launches("channelnorm"),
+        "unpaired_launches": unpaired_launches("channelnorm"),
         # the 6 calls (4 of 3 channels, 2 of 2) of a FlowNet2 forward of
         # one frame pair, fp32
         **{key: sum(r[key] * r["calls"] for r in cn_per_pair)
@@ -4317,7 +4653,7 @@ def main():
              "spade_train_entry": entry, "resample2d_bwd": rs_bwd_rows,
              "vid2vid_train_entry": v2v_train, "vid2vid_eval_entry": v2v_eval,
              "spade_eval_entry": evaluation, "fs_vid2vid_entry": fs,
-             "wc_vid2vid_entry": wc, "pix2pixHD_entry": p2p,
+             "wc_vid2vid_entry": wc, "pix2pixHD_entry": p2p, "unpaired_entry": unpaired,
              "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)

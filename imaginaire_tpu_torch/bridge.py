@@ -21,9 +21,10 @@ carries the JAX discriminator's ``params``/``spectral`` trees and the
 VGG19 ``params`` of the perceptual loss (into ``PerceptualLoss.module``).
 
 ``load_jax_state(trainer, state)`` fills a port trainer from a JAX
-trainer's state pytree: ``vars_G`` and ``vars_D`` as above, and
-pix2pixHD's ``cluster_centers`` (label, cluster, feature: the same layout
-in both packages).
+trainer's state pytree: ``vars_G`` and ``vars_D`` as above, the averaged
+copy ``ema_G`` (G's params tree) into ``trainer.ema_G``, and pix2pixHD's
+``cluster_centers`` (label, cluster, feature: the same layout in both
+packages).
 
 ``load_adam_state(opt, module, mu, nu, count)`` carries optax Adam's
 moments (trees shaped like the module's ``params``) and step count into
@@ -149,13 +150,28 @@ def load_adam_state(opt, module, mu, nu, count):
 @torch.no_grad()
 def load_jax_state(trainer, state):
     """Copy a JAX trainer's ``state`` (``vars_G``, and where present
-    ``vars_D`` and ``cluster_centers``) into ``trainer``; a leaf the
+    ``vars_D``, ``ema_G`` and ``cluster_centers``) into ``trainer``; a leaf the
     trainer has no place for raises. Returns the trainer."""
     load_flax_variables(trainer.net_G, state["vars_G"])
     if "vars_D" in state:
         if trainer.net_D is None:
             raise KeyError("the JAX state has vars_D; the port trainer has no D")
         load_flax_variables(trainer.net_D, state["vars_D"])
+    if "ema_G" in state:
+        if trainer.ema_G is None:
+            raise KeyError("the JAX state has ema_G; the port trainer averages no G "
+                           "(trainer.model_average, after init_state)")
+        ema = to_port_layout(trainer.net_G, state["ema_G"])
+        if set(ema) != set(trainer.ema_G):
+            raise KeyError(f"ema_G does not fit G's parameters: missing "
+                           f"{sorted(set(trainer.ema_G) - set(ema))[:5]}, unknown "
+                           f"{sorted(set(ema) - set(trainer.ema_G))[:5]}")
+        for name, value in ema.items():
+            dest = trainer.ema_G[name]
+            if tuple(value.shape) != tuple(dest.shape):
+                raise ValueError(f"ema_G {name}: shape {tuple(value.shape)} does not "
+                                 f"fit {tuple(dest.shape)}")
+            dest.copy_(torch.from_numpy(value).to(device=dest.device, dtype=dest.dtype))
     if "cluster_centers" in state:
         dest = getattr(trainer, "cluster_centers", None)
         src = torch.from_numpy(np.array(state["cluster_centers"], np.float32))

@@ -152,7 +152,9 @@ def _walk_dataset_files(data_root, data_types, sequence_files):
 
 def build_packed_dataset(data_root, out_root, data_types):
     """Pack ``data_root/<data_type>/<sequence>/<file>`` trees into one
-    blob per data type + ``all_filenames.json``."""
+    blob per data type + ``all_filenames.json`` ({sequence: [stems]} of
+    every type), and each type's own ``<type>/all_filenames.json`` (the
+    unpaired datasets' per-domain pools)."""
     os.makedirs(out_root, exist_ok=True)
     sequence_files, outs, indices = {}, {}, {}
     for data_type in data_types:
@@ -171,6 +173,12 @@ def build_packed_dataset(data_root, out_root, data_types):
     for data_type in data_types:
         with open(os.path.join(out_root, data_type, "index.json"), "w") as f:
             json.dump(indices[data_type], f)
+        own = {}
+        for key in indices[data_type]:
+            seq, stem = key.rsplit("/", 1)
+            own.setdefault(seq, []).append(stem)
+        with open(os.path.join(out_root, data_type, "all_filenames.json"), "w") as f:
+            json.dump(own, f)
     with open(os.path.join(out_root, "all_filenames.json"), "w") as f:
         json.dump(sequence_files, f)
     return out_root

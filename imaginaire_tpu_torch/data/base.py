@@ -93,6 +93,7 @@ class BaseDataset:
             backend = "lmdb"
         elif cfg_get(data_info, "is_packed", False):
             backend = "packed"
+        self.backend_kind = backend
 
         self.data_types = []
         self.extensions = {}

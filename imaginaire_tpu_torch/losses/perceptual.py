@@ -108,14 +108,22 @@ def load_torch_vgg_weights(npz_path, module):
     return module
 
 
+def _instance_norm(f, eps=1e-5):
+    """Each feature plane to zero mean and unit (biased) variance."""
+    mean = f.mean(dim=(2, 3), keepdim=True)
+    var = (f - mean).square().mean(dim=(2, 3), keepdim=True)
+    return (f - mean) * torch.rsqrt(var + eps)
+
+
 class PerceptualLoss:
-    """Weighted multi-layer L1 feature distance over VGG19, at one scale
-    (the JAX loss's defaults; its criterion, resize, scale and
-    instance-norm options are not ported)."""
+    """Weighted multi-layer L1 feature distance over VGG19, at one scale,
+    each layer's features instance-normalized first with
+    ``instance_normalized`` (MUNIT's); the JAX loss's criterion, resize
+    and scale options are not ported."""
 
     def __init__(self, network="vgg19", layers="relu_4_1", weights=None,
                  compute_dtype=torch.bfloat16, weights_path=None,
-                 allow_random_init=False, device=None):
+                 allow_random_init=False, device=None, instance_normalized=False):
         if isinstance(layers, str):
             layers = [layers]
         if weights is None:
@@ -130,6 +138,7 @@ class PerceptualLoss:
             raise NotImplementedError(f"perceptual network {network!r} is not "
                                       f"in the port yet (ROADMAP.md); it has vgg19")
         self.layers, self.weights = list(layers), list(weights)
+        self.instance_normalized = instance_normalized
         self.compute_dtype = compute_dtype
         self.allow_random_init = allow_random_init
         if weights_path is None:
@@ -169,6 +178,9 @@ class PerceptualLoss:
         in_feats = self.module(inp.to(self.compute_dtype))
         loss = torch.zeros((), device=inp.device)
         for layer, weight in zip(self.layers, self.weights):
-            diff = in_feats[layer].float() - tg_feats[layer].float()
+            f_in, f_tg = in_feats[layer], tg_feats[layer]
+            if self.instance_normalized:
+                f_in, f_tg = _instance_norm(f_in), _instance_norm(f_tg)
+            diff = f_in.float() - f_tg.float()
             loss = loss + weight * diff.abs().mean()
         return loss

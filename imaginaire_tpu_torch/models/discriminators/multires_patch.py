@@ -1,7 +1,8 @@
 """Multi-resolution PatchGAN discriminator (port of
 ``imaginaire_tpu/models/discriminators/multires_patch.py``): the N-layer
-patch discriminator, the pyramid's 2x downsampling, and the
-config-driven ``Discriminator`` (pix2pixHD's) over concat(label, image).
+patch discriminator, the pyramid's 2x downsampling (one discriminator a
+scale, or one shared by every scale), and the config-driven
+``Discriminator`` (pix2pixHD's) over concat(label, image).
 
 The pyramid is bilinear with ALIGN-CORNERS sampling, the reference's
 convention (output pixel i samples input position i (n_in - 1) /
@@ -94,25 +95,32 @@ class NLayerPatchDiscriminator(nn.Module):
 
 class MultiResPatchDiscriminator(nn.Module):
     """One ``NLayerPatchDiscriminator`` a pyramid scale (``d_<i>``, as
-    the flax tree names them), each scale the align-corners bilinear
-    half of the one before. Returns (logits a scale, features a scale)."""
+    the flax tree names them), or with ``weight_shared`` one
+    (``d_shared``) applied at every scale, each scale the align-corners
+    bilinear half of the one before. Returns (logits a scale, features a
+    scale)."""
 
     def __init__(self, in_channels, num_discriminators=3, kernel_size=3,
                  num_filters=64, num_layers=4, max_num_filters=512,
-                 activation_norm_type="", weight_norm_type="", remat="none"):
+                 activation_norm_type="", weight_norm_type="", weight_shared=False,
+                 remat="none"):
         super().__init__()
         self.num_discriminators = num_discriminators
-        for i in range(num_discriminators):
-            self.add_module(f"d_{i}", NLayerPatchDiscriminator(
-                in_channels, kernel_size=kernel_size, num_filters=num_filters,
-                num_layers=num_layers, max_num_filters=max_num_filters,
-                activation_norm_type=activation_norm_type,
-                weight_norm_type=weight_norm_type, remat=remat))
+        self.weight_shared = weight_shared
+        for i in range(1 if weight_shared else num_discriminators):
+            self.add_module("d_shared" if weight_shared else f"d_{i}",
+                            NLayerPatchDiscriminator(
+                                in_channels, kernel_size=kernel_size,
+                                num_filters=num_filters, num_layers=num_layers,
+                                max_num_filters=max_num_filters,
+                                activation_norm_type=activation_norm_type,
+                                weight_norm_type=weight_norm_type, remat=remat))
 
     def forward(self, x):
         outputs, features_list = [], []
         for i in range(self.num_discriminators):
-            logits, feats = getattr(self, f"d_{i}")(x)
+            d = self.d_shared if self.weight_shared else getattr(self, f"d_{i}")
+            logits, feats = d(x)
             outputs.append(logits)
             features_list.append(feats)
             if i != self.num_discriminators - 1:

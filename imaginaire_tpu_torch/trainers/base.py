@@ -841,19 +841,24 @@ class BaseTrainer:
             return self.net_G(data, **kwargs)["fake_images"]
         return torch.func.functional_call(self.net_G, params, (data,), kwargs)["fake_images"]
 
+    def inference_forward(self, params, data, generator, inference_args):
+        """G's images for a test batch under ``params``, with the config's
+        ``inference_args`` and the noise drawn from ``generator``."""
+        return self._generate(data, params, generator,
+                              bool(inference_args.get("random_style", False)))
+
     @torch.no_grad()
     def test(self, data_loader, output_dir, inference_args=None):
         """One image a test item, ``<output_dir>/<key>.png``, from the
-        inference weights; batch ``it``'s noise is drawn from a generator
-        seeded with ``it``."""
+        inference weights (``inference_forward``); batch ``it``'s noise is
+        drawn from a generator seeded with ``it``."""
         os.makedirs(output_dir, exist_ok=True)
         inference_args = dict(inference_args or {})
-        random_style = bool(inference_args.get("random_style", False))
         params = self.inference_params()
         for it, data in enumerate(data_loader):
             data = self._inference_data(self.start_of_iteration(data, -1))
             generator = torch.Generator(device=self.device).manual_seed(it)
-            images = self._generate(data, params, generator, random_style)
+            images = self.inference_forward(params, data, generator, inference_args)
             images = images.float().permute(0, 2, 3, 1).cpu().numpy()
             keys = data.get("key", [f"{it:06d}_{i}" for i in range(images.shape[0])])
             for img, name in zip(images, keys):

@@ -3,9 +3,9 @@
 On top of the base trainer (``trainers/base.py``: device, seeded
 weights, averaged inference weights, the D+G step) it expands integer
 label maps on the device, rounds host arrays to the generator's base
-multiple, and defines the SPADE losses: hinge GAN, VGG19 perceptual,
-feature matching and the style encoder's Gaussian KL, at the config's
-weights. The G noise (the style encoder's VAE eps) of a step is drawn
+multiple, and defines the SPADE losses: the GAN loss in the config's
+mode, VGG19 perceptual, feature matching and the style encoder's
+Gaussian KL, at the config's weights. The G noise (the style encoder's VAE eps) of a step is drawn
 from the trainer's ``gen_rng`` / ``dis_rng`` generators, or injected.
 For the loop it folds 5-D batches into label channels
 (``_start_of_iteration``) and draws the image snapshots
@@ -60,9 +60,6 @@ class Trainer(BaseTrainer):
     def _init_loss(self, cfg):
         tcfg = cfg.trainer
         self.gan_mode = cfg_get(tcfg, "gan_mode", "hinge")
-        if self.gan_mode != "hinge":
-            raise NotImplementedError(f"gan_mode {self.gan_mode!r} is not in "
-                                      f"the port yet (ROADMAP.md)")
         self.weights["GAN"] = tcfg.loss_weight.gan
         self.weights["FeatureMatching"] = tcfg.loss_weight.feature_matching
         if cfg_get(tcfg.loss_weight, "kl", None) is not None:
@@ -93,7 +90,7 @@ class Trainer(BaseTrainer):
         return self._expand_labels(self._to_compute_dtype(data))
 
     def gen_forward(self, data, noise):
-        """(losses, G's output): GAN (hinge, G form), FeatureMatching,
+        """(losses, G's output): GAN (G form), FeatureMatching,
         GaussianKL and Perceptual."""
         net_G_output = self.net_G(data, noise=noise)
         net_D_output = self.net_D(data, net_G_output)
@@ -113,7 +110,7 @@ class Trainer(BaseTrainer):
         return losses, net_G_output
 
     def dis_forward(self, data, noise):
-        """GAN/fake, GAN/true and their sum GAN (hinge, D form), and D's
+        """GAN/fake, GAN/true and their sum GAN (D form), and D's
         real/fake accuracy (unweighted: it never enters the total)."""
         with torch.no_grad():
             fake = self.net_G(data, noise=noise)["fake_images"]

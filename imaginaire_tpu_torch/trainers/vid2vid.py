@@ -13,10 +13,11 @@ training mode without advancing G's state), the non-finite guard and the
 EMA after every G step. The losses of the frames are averaged per key.
 ``dis_update`` is a no-op: the D steps run inside the rollout.
 
-The losses: hinge GAN and feature matching of the image discriminator
-and of each temporal scale, VGG19 perceptual, optional L1, and the flow
-loss: with the FlowNet2 teacher (``flow_network``), ``FlowLoss`` on the
-teacher's flow computed in the G step (or on ``flow_gt`` / ``conf_gt``
+The losses: the GAN loss (the config's mode) and feature matching of the
+image discriminator and of each temporal scale, VGG19 perceptual,
+optional L1, and the flow loss: with the FlowNet2 teacher
+(``flow_network``), ``FlowLoss`` on the teacher's flow computed in the
+G step (or on ``flow_gt`` / ``conf_gt``
 when the teacher's cache attached them to the batch), else the
 warp-consistency masked L1. The teacher's weights are not in a
 checkpoint: they come from its weights file or from seed 0.
@@ -122,9 +123,6 @@ class Trainer(BaseTrainer):
                   "which the JAX package defines as bit-identical to it")
         lw = tcfg.loss_weight
         self.gan_mode = cfg_get(tcfg, "gan_mode", "hinge")
-        if self.gan_mode != "hinge":
-            raise NotImplementedError(f"gan_mode {self.gan_mode!r} is not in "
-                                      f"the port yet (ROADMAP.md)")
         self.weights["GAN"] = lw.gan
         self.weights["FeatureMatching"] = lw.feature_matching
         self.perceptual = None
@@ -257,7 +255,7 @@ class Trainer(BaseTrainer):
 
     def _gan_fm_losses(self, d_out_part, dis_update):
         """(GAN, feature matching) of one discriminator's outputs; the D
-        step's GAN is the mean of its fake and real hinge terms."""
+        step's GAN is the mean of its fake and real terms."""
         fake, real = d_out_part["pred_fake"], d_out_part["pred_real"]
         if dis_update:
             gan = 0.5 * (gan_loss(fake["outputs"], False, self.gan_mode, True)

@@ -48,8 +48,14 @@ def init_kernel_(weight, generator, init_type="xavier", gain=0.02):
 
 def init_weights(module, generator, init_type="xavier", gain=0.02):
     """Draw every kernel of ``module`` (each submodule's ``weight`` that
-    is a conv or dense kernel, i.e. rank >= 2) in registration order."""
+    is a conv or dense kernel, i.e. rank >= 2) in registration order. A
+    submodule with a ``draw_own_init(generator)`` method (a layer that
+    the JAX package draws with flax's own initializer) draws itself."""
     for sub in module.modules():
+        own = getattr(sub, "draw_own_init", None)
+        if own is not None:
+            own(generator)
+            continue
         weight = getattr(sub, "_parameters", {}).get("weight")
         if weight is not None and weight.dim() >= 2:
             init_kernel_(weight, generator, init_type, gain)

@@ -145,3 +145,43 @@ def numeric_only(tree):
         else:
             out[k] = v
     return out
+
+
+def random_shift_offsets(shape, generator=None, offset=0.05, device=None):
+    """The (oy, ox) draws of ``random_shift`` for an NCHW ``shape``: per
+    sample, integers in [0, 2 m] with m = max(1, int(offset * size))."""
+    b, _, h, w = shape
+    mh, mw = max(1, int(offset * h)), max(1, int(offset * w))
+    oy = torch.randint(0, 2 * mh + 1, (b,), generator=generator, device=device)
+    ox = torch.randint(0, 2 * mw + 1, (b,), generator=generator, device=device)
+    return oy, ox
+
+
+def random_shift(x, offsets, offset=0.05):
+    """Translate each NCHW image by whole pixels: reflect-pad by m =
+    max(1, int(offset * size)) a side, then take the window at (oy, ox)
+    of ``offsets`` (``random_shift_offsets``), as the JAX package's
+    ``random_shift`` does with its drawn offsets."""
+    b, c, h, w = x.shape
+    mh, mw = max(1, int(offset * h)), max(1, int(offset * w))
+    pad = F.pad(x, (mw, mw, mh, mh), mode="reflect")
+    oy, ox = (torch.as_tensor(o, device=x.device).long() for o in offsets)
+    rows = (oy.view(b, 1) + torch.arange(h, device=x.device)).view(b, 1, h, 1)
+    cols = (ox.view(b, 1) + torch.arange(w, device=x.device)).view(b, 1, 1, w)
+    pad = pad.gather(2, rows.expand(b, c, h, pad.shape[-1]))
+    return pad.gather(3, cols.expand(b, c, h, w))
+
+
+def gradient_penalty(d_apply, images):
+    """E[||grad_x D(x)||^2]: the squared L2 norm of the gradient of the
+    sum of D's outputs (a tensor or a list of them) with respect to each
+    sample of ``images``, averaged over the batch. The graph is kept
+    (``create_graph``), so the penalty trains D."""
+    images = images.detach().requires_grad_(True)
+    out = d_apply(images)
+    if isinstance(out, (list, tuple)):
+        total = sum(o.sum() for o in out)
+    else:
+        total = out.sum()
+    grads, = torch.autograd.grad(total, images, create_graph=True)
+    return grads.square().sum(dim=tuple(range(1, grads.dim()))).mean()

@@ -318,23 +318,33 @@ def test_encoder_matches_jax():
         assert np.ptp(vals, axis=0).max() <= 1e-6
 
 
+@pytest.fixture(scope="module")
+def unit_generator():
+    """The unit config's JAX generator and its drawn variables, shared by
+    the cases: the tree of the encoding init (flax creates no encoder
+    parameters in an init that is handed the features)."""
+    jcfg = JaxConfig(UNIT)
+    jnet = jgen.Generator(jcfg.gen, jcfg.data)
+    label, images, inst = unit_inputs(13, hw=2 * HW)
+    data = {"label": jnp.asarray(label), "images": jnp.asarray(images),
+            "instance_maps": jnp.asarray(inst)}
+    return jnet, draw(jax.eval_shape(lambda d: jnet.init(jax.random.PRNGKey(0), d), data),
+                      seed=13)
+
+
 @pytest.mark.parametrize("features", ["encoded", "given"])
-def test_generator_matches_jax(features):
+def test_generator_matches_jax(unit_generator, features):
     """The unit config's generator (encoder, global generator, one
     enhancer, the average-pool pyramid), with the encoder's features or
     with ``feature_maps`` passed in."""
-    jcfg, tcfg = JaxConfig(UNIT), Config(UNIT)
-    jnet = jgen.Generator(jcfg.gen, jcfg.data)
+    tcfg = Config(UNIT)
+    jnet, variables = unit_generator
     hw = 2 * HW
     label, images, inst = unit_inputs(13, hw=hw)
     data = {"label": jnp.asarray(label), "images": jnp.asarray(images),
             "instance_maps": jnp.asarray(inst)}
     tdata = {"label": nchw(label), "images": nchw(images),
              "instance_maps": torch.from_numpy(inst.transpose(0, 3, 1, 2).copy())}
-    # the tree of the encoding init: flax creates no encoder parameters in
-    # an init that is handed the features
-    variables = draw(jax.eval_shape(lambda d: jnet.init(jax.random.PRNGKey(0), d), data),
-                     seed=13)
     if features == "given":
         feats = np.random.RandomState(13).uniform(-1, 1, (2, hw, hw, 3)).astype(np.float32)
         data["feature_maps"], tdata["feature_maps"] = jnp.asarray(feats), nchw(feats)

@@ -156,10 +156,20 @@ def test_config_types_resolve_to_the_port():
     assert registry.resolve("imaginaire_tpu.trainers.vid2vid", "Trainer") \
         .__module__ == "imaginaire_tpu_torch.trainers.vid2vid"
     with pytest.raises(ModuleNotFoundError, match="ROADMAP"):
-        registry.resolve("imaginaire_tpu.trainers.unit", "Trainer")
+        registry.resolve("imaginaire_tpu.trainers.funit", "Trainer")
 
 
 def test_engine_refuses_pix2pixHD():
     """The trainer is ported; serving it is not (ROADMAP.md A.5)."""
     with pytest.raises(ServingError, match="ROADMAP"):
         engine_from_config(Config("configs/unit_test/pix2pixHD.yaml"), device="cpu")
+
+
+@pytest.mark.parametrize("config", ["configs/unit_test/unit.yaml",
+                                    "configs/unit_test/munit.yaml"])
+def test_engine_refuses_the_unpaired_families(config):
+    """UNIT and MUNIT train and infer in the port; the engine, which
+    serves label-to-image requests, refuses them (ROADMAP.md A.5)."""
+    assert registry.resolve(Config(config).trainer.type, "Trainer").serves_requests is False
+    with pytest.raises(ServingError, match="ROADMAP"):
+        engine_from_config(Config(config), device="cpu")

@@ -52,6 +52,10 @@ OVERRIDES = {
 }
 
 
+# the same functions, compiled with less optimization (CPU compile time)
+CHEAP = {"xla_backend_optimization_level": 0,
+         "xla_llvm_disable_expensive_passes": True}
+
 # label maps of 64x64: the 256 ladder's least input with every level
 # above 1x1 (its 16x16 start runs at 4x4)
 LABEL_HW = 64
@@ -101,7 +105,7 @@ def test_spade_generator_matches_jax(path):
 
     want = np.asarray(jax.jit(lambda v, s, zz: jnet.apply(
         v, s, zz, method=lambda m, s_, z_: m.spade_generator(
-            s_, z_, training=False))["fake_images"])(
+            s_, z_, training=False))["fake_images"], compiler_options=CHEAP)(
         variables, jnp.asarray(seg), jnp.asarray(z)))
     load_flax_variables(tnet, variables)
     with torch.no_grad():
@@ -119,7 +123,7 @@ def test_style_encoder_matches_jax():
     key = jax.random.PRNGKey(5)
     variables = random_variables(jax.eval_shape(
         lambda: jenc.init({"params": key}, jnp.asarray(images), rng=key)))
-    want = jax.jit(lambda v, x: jenc.apply(v, x, rng=key))(
+    want = jax.jit(lambda v, x: jenc.apply(v, x, rng=key), compiler_options=CHEAP)(
         variables, jnp.asarray(images))
     eps = np.array(jax.random.normal(key, (2, 8)))  # the draw JAX made
     load_flax_variables(tenc, variables)

@@ -48,6 +48,9 @@ def one_torch_thread():
 
 CFG = "configs/unit_test/vid2vid_street.yaml"
 LABELS, HW = 12, 64
+# the same functions, compiled with less optimization (CPU compile time)
+CHEAP = {"xla_backend_optimization_level": 0,
+         "xla_llvm_disable_expensive_passes": True}
 FLOW_MULTIPLIER = 40  # gen.flow.flow_output_multiplier of the config
 OUT_KEYS = ("fake_images", "fake_flow_maps", "fake_occlusion_masks",
             "fake_raw_images", "warped_images")
@@ -99,7 +102,8 @@ def nets():
         example, training=True, init_all=True))
     variables = random_variables(shapes)
     apply = jax.jit(lambda v, d: jnet.apply(
-        v, d, training=False, mutable=["batch_stats", "spectral"])[0])
+        v, d, training=False, mutable=["batch_stats", "spectral"])[0],
+        compiler_options=CHEAP)
     tnet = Generator(Config(CFG).gen, Config(CFG).data).eval()
     load_flax_variables(tnet, variables)
     return jnet, variables, apply, tnet
@@ -107,7 +111,7 @@ def nets():
 
 def jax_method(nets, fn, *args):
     jnet, variables = nets[0], nets[1]
-    return jax.jit(lambda v, *a: jnet.apply(v, *a, method=fn))(
+    return jax.jit(lambda v, *a: jnet.apply(v, *a, method=fn), compiler_options=CHEAP)(
         variables, *[jnp.asarray(a) for a in args])
 
 
@@ -190,8 +194,8 @@ def test_code_start_matches_jax():
         init_all=True))
     variables = random_variables(shapes, seed=1)
     want = jax.jit(lambda v, d: jnet.apply(
-        v, d, training=False, mutable=["batch_stats", "spectral"])[0])(
-        variables, {k: jnp.asarray(v) for k, v in data.items()})
+        v, d, training=False, mutable=["batch_stats", "spectral"])[0],
+        compiler_options=CHEAP)(variables, {k: jnp.asarray(v) for k, v in data.items()})
     cfg = Config(CFG, overrides=override)
     tnet = Generator(cfg.gen, cfg.data).eval()
     load_flax_variables(tnet, variables)

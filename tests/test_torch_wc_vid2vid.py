@@ -344,7 +344,8 @@ def nets():
             jnet = JaxGenerator(jcfg.gen, jcfg.data)
             variables = generator_vars(jnet)
             apply = jax.jit(lambda v, d: jnet.apply(
-                v, d, training=False, mutable=["batch_stats", "spectral"])[0])
+                v, d, training=False, mutable=["batch_stats", "spectral"])[0],
+                compiler_options=CHEAP)
             tnet = load_flax_variables(Generator(tcfg.gen, tcfg.data), variables).eval()
             built[case] = (variables, apply, tnet)
         return built[case]
