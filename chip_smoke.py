@@ -254,7 +254,28 @@ Phases, one line each; any failure exits non-zero:
    iteration ms, D and G step ms, peak memory, the checkpoint's bytes and
    save seconds, the inference seconds and the phase's seconds are
    printed;
-16. a ``phase_seconds`` line, a ``kernels`` JSON line, the nvidia-smi
+16. FUNIT and COCO-FUNIT (``funit_entry``, after phase 15): a seeded
+   packed few-shot dataset (RGB PNG, 288x320; 3 content and 3 style
+   classes of 4 training images each, 2 validation images a class, each
+   type its own file list), ``ext: png``, a test split copied from the
+   val split, phase 15's forced cadences.
+   configs/projects/coco_funit/mammals/base64_bs8_class305.yaml (batch 8,
+   bf16, the averaged copy, 305 classes in D; a 270 resize, a rotation of
+   up to 4 degrees and a 256 crop) trains 2 iterations through
+   ``imaginaire_tpu_torch.train.main`` with a checkpoint at 2 that
+   verifies, then ``imaginaire_tpu_torch.inference.main`` translates each
+   test item from a verified load of it: finite outputs within [-1, 1]
+   (the tanh), and each PNG its item's output within one 8-bit level.
+   configs/projects/funit/animal_faces/base64_bs8_class119.yaml trains 2
+   iterations through ``train.main``. Then one fp32 forward of each
+   generator at full width (batch 1, 256x256, both outputs) on the card
+   (TF32 off) against the port's CPU forward at the same seeded weights
+   (relative L2 per output, gate 1e-4). No kernel runs: the six launch
+   counters are reset just before and read just after each run, and
+   every count must be 0. Parameters, the first and warm iteration ms, D
+   and G step ms, peak memory, the checkpoint's bytes and save seconds,
+   the inference seconds and the phase's seconds are printed;
+17. a ``phase_seconds`` line, a ``kernels`` JSON line, the nvidia-smi
    line, and the final JSON line.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -1580,6 +1601,25 @@ UNPAIRED_CADENCES = {"logging_iter": 1, "snapshot_save_epoch": 1000,
 UNPAIRED_PARAMS = {"munit": (30_258_966, 32_322_498), "unit": (12_555_654, 5_295_042)}
 UNPAIRED_DTYPES = {"munit": torch.bfloat16, "unit": torch.float32}
 TOL_UNPAIRED_FWD = 1e-4
+# FUNIT and COCO-FUNIT (phase 16): the committed configs, a seeded packed
+# few-shot dataset, 2 iterations each, COCO-FUNIT's checkpoint and
+# inference, then one fp32 forward of each generator on the card
+FUNIT_CONFIGS = {
+    "coco_funit": REPO / "configs/projects/coco_funit/mammals/base64_bs8_class305.yaml",
+    "funit": REPO / "configs/projects/funit/animal_faces/base64_bs8_class119.yaml"}
+FUNIT_INFERS = ("coco_funit",)
+FUNIT_CLASSES = 3  # content and style classes each
+FUNIT_ITEMS = {"train": 4, "val": 2}  # images a class
+FUNIT_HW = (288, 320)
+FUNIT_ITERATIONS = 2
+FUNIT_BATCH = 8
+# train.main saves the checkpoint at max_iter; the configs' own
+# snapshot_save_iter (5000) keeps FID (no Inception-v3 weights) out
+FUNIT_FORCED = {"max_iter": FUNIT_ITERATIONS}
+# (G, D) as tests/test_torch_funit.py counts them against the JAX trees
+FUNIT_PARAMS = {"coco_funit": (121_562_307, 92_198_721),
+                "funit": (120_987_203, 92_008_257)}
+TOL_FUNIT_FWD = 1e-4
 
 class HostClocks:
     """Per-iteration host accounting of the training loop: wall time,
@@ -3998,6 +4038,270 @@ def unpaired_entry(rs, spade_mod, corr, cn, device="cuda", overrides=None, hw=UN
     return row
 
 
+def write_fewshot_dataset(root, hw=FUNIT_HW, seed=ENTRY_SEED):
+    """Phase 16's raw folders ``root/{train,val}/{images_content,
+    images_style}/class<c>/<i>.png`` (seeded smooth RGB images, each class
+    of its own tint), packed by ``build_packed_dataset`` into
+    ``root/packed_{train,val}``, each type with its own file list. Returns
+    {split: packed root}."""
+    from imaginaire_tpu_torch.data.backends import build_packed_dataset
+    from imaginaire_tpu_torch.data.png import write_png
+
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    packed = {}
+    for split, n in FUNIT_ITEMS.items():
+        raw = root / split
+        for data_type in ("images_content", "images_style"):
+            for c in range(FUNIT_CLASSES):
+                tint = rng.uniform(0.3, 1.0, 3)
+                folder = raw / data_type / f"class{c}"
+                folder.mkdir(parents=True, exist_ok=True)
+                for i in range(n):
+                    waves = sum(np.sin(xs * rng.uniform(0.01, 0.08)
+                                       + ys * rng.uniform(0.01, 0.08) + rng.uniform(0, 6.3))
+                                for _ in range(3)) / 3
+                    img = np.stack([(0.5 + 0.4 * waves * t) for t in tint], axis=-1)
+                    img = img + rng.normal(0, 0.03, img.shape)
+                    write_png(folder / f"{i:05d}.png",
+                              np.clip(img * 255, 0, 255).astype(np.uint8))
+        packed[split] = build_packed_dataset(str(raw), str(root / f"packed_{split}"),
+                                             ["images_content", "images_style"])
+    return packed
+
+
+def funit_fp32_forward(family, device="cuda", hw=(256, 256)):
+    """One fp32 forward of ``family``'s generator at its committed
+    config's full width on ``device`` (TF32 off) against the port's CPU
+    forward at the same seeded weights (kaiming, gain 1; COCO-FUNIT's
+    ``usb`` by its own draw), batch 1: the translation and the
+    reconstruction. Returns {output: relative L2} and the device's ms."""
+    from imaginaire_tpu_torch.config import Config
+    from imaginaire_tpu_torch.registry import resolve
+    from imaginaire_tpu_torch.utils.init_weight import init_weights
+
+    cfg = Config(FUNIT_CONFIGS[family])
+    cls = resolve(cfg.gen.type, "Generator")
+    cpu_net = cls(cfg.gen, cfg.data)
+    init_weights(cpu_net, torch.Generator().manual_seed(ENTRY_SEED), "kaiming", 1.0)
+    cpu_net.eval()
+    gen = torch.Generator().manual_seed(ENTRY_SEED + 1)
+    data = {k: torch.rand((1, 3) + tuple(hw), generator=gen) * 2 - 1
+            for k in ("images_content", "images_style")}
+    net = cls(cfg.gen, cfg.data).to(device).eval()
+    net.load_state_dict(cpu_net.state_dict())
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = cpu_net(data)
+            dev_data = {k: v.to(device) for k, v in data.items()}
+            got = net(dev_data)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            net(dev_data)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    errs = {}
+    for k, w in want.items():
+        g = got[k].float().cpu()
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"{family} fp32 forward {k}: {tuple(g.shape)}, finite "
+                                 f"{bool(torch.isfinite(g).all())}")
+        errs[k] = float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w))
+    return errs, ms
+
+
+def funit_entry(rs, spade_mod, corr, cn, device="cuda", overrides=None, hw=FUNIT_HW,
+                fwd_hw=(256, 256)):
+    """Phase 16: COCO-FUNIT (mammals) and FUNIT (animal faces) at their
+    committed configs' widths through ``imaginaire_tpu_torch.train.main``
+    (2 iterations at batch 8, a checkpoint) on a seeded packed few-shot
+    dataset, COCO-FUNIT's ``.inference.main`` from a verified load of its
+    checkpoint, then one fp32 forward of each generator on the card
+    against the CPU. No kernel of the port runs: every launch count must
+    stay 0."""
+    import gc
+
+    from imaginaire_tpu_torch import inference, train
+    from imaginaire_tpu_torch.config import recursive_update
+    from imaginaire_tpu_torch.data.png import decode_png
+    from imaginaire_tpu_torch.registry import resolve
+    from imaginaire_tpu_torch.resilience.integrity import verify_files
+    from imaginaire_tpu_torch.utils import checkpoint as ckpt_lib
+    from imaginaire_tpu_torch.utils.meters import ScalarWriter
+
+    cuda = device == "cuda"
+    torch.backends.cudnn.allow_tf32 = True  # training runs the defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    rows = {}
+    with tempfile.TemporaryDirectory(prefix="funit_entry_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        packed = write_fewshot_dataset(tmp, hw=hw)
+        data_s = time.perf_counter() - t0
+        for family, base in FUNIT_CONFIGS.items():
+            def edit(cfg):
+                for split in ("train", "val"):
+                    cfg["data"][split]["roots"] = [packed[split]]
+                for entry in cfg["data"]["input_types"]:
+                    for info in entry.values():
+                        info["ext"] = "png"
+                for section in (FUNIT_FORCED, UNPAIRED_CADENCES,
+                                (overrides or {}).get(family, {})):
+                    recursive_update(cfg, copy.deepcopy(section))
+
+            cfg_path = p2p_config(tmp, base, edit, f"{family}.yaml")
+            trainer_cls = resolve("imaginaire_tpu.trainers.funit", "Trainer")
+            logdir = tmp / f"{family}_log"
+            saves, save = [], trainer_cls.save_checkpoint
+
+            def timed_save(self, *a, _save=save, **k):
+                t = time.perf_counter()
+                path = _save(self, *a, **k)
+                saves.append(time.perf_counter() - t)
+                return path
+
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            reset_all_launches(rs, corr, cn, spade_mod)
+            trainer_cls.save_checkpoint = timed_save
+            try:
+                t0 = time.perf_counter()
+                trainer = train.main(["--config", str(cfg_path), "--logdir", str(logdir),
+                                      "--seed", str(ENTRY_SEED), "--device", device])
+                train_s = time.perf_counter() - t0
+            finally:
+                trainer_cls.save_checkpoint = save
+            train_peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else "not measured"
+            launches = all_launches(rs, corr, cn, spade_mod)
+            params = (sum(p.numel() for p in trainer.net_G.parameters()),
+                      sum(p.numel() for p in trainer.net_D.parameters()))
+            batch = int(trainer.cfg.data.train.batch_size)
+            if any(launches.values()) or trainer.current_iteration != FUNIT_ITERATIONS \
+                    or trainer.compute_dtype != torch.bfloat16 or batch != FUNIT_BATCH \
+                    or params != FUNIT_PARAMS[family] or not trainer.model_average:
+                raise AssertionError(f"{family} training entry: launches {launches} (all 0 "
+                                     f"expected), iterations {trainer.current_iteration}, "
+                                     f"compute dtype {trainer.compute_dtype}, batch {batch}, "
+                                     f"params {params}")
+            scalars = [r for r in ScalarWriter(logdir).read() if r["kind"] == "counter"
+                       and r["name"].split("/")[0] in ("gen_update", "dis_update")]
+            names = {r["name"] for r in scalars}
+            bad = [r for r in scalars if not np.isfinite(r["value"])]
+            want_terms = {f"gen_update/{k}" for k in trainer.weights} | {
+                "dis_update/gan", "dis_update/D_real_acc", "gen_update/total"}
+            if bad or not want_terms <= names:
+                raise AssertionError(f"{family} meters.jsonl: {sorted(names)}, non-finite "
+                                     f"{bad[:5]}, expected {sorted(want_terms)}")
+            checkpoint = ckpt_lib.latest_checkpoint_path(str(logdir))
+            integrity = ckpt_lib.read_integrity_sidecar(checkpoint)
+            t0 = time.perf_counter()
+            verify_files(checkpoint, integrity["files"], context=checkpoint)
+            verify_s = time.perf_counter() - t0
+            if ckpt_lib.parse_checkpoint_name(checkpoint)[1] != FUNIT_ITERATIONS \
+                    or integrity["n_leaves"] != len(trainer.state_tensors()):
+                raise AssertionError(f"checkpoint {checkpoint}: {integrity['n_leaves']} records")
+            timings = {k: [t * 1e3 for t in v] for k, v in trainer.timings.items()}
+            weights = sorted(trainer.weights)
+            del trainer
+            if cuda:
+                torch.cuda.empty_cache()
+            warm = timings["iteration"][1:]
+            rows[family] = {
+                "config": str(base.relative_to(REPO)), "compute_dtype": "bfloat16",
+                "generator_params": params[0], "discriminator_params": params[1],
+                "loss_weights": weights, "train_s": train_s,
+                "iterations": FUNIT_ITERATIONS, "batch": batch,
+                "iteration_ms": timings["iteration"],
+                "first_iteration_ms": timings["iteration"][0],
+                "warm_iteration_ms": float(np.median(warm)),
+                "first_dis_step_ms": timings["dis_step"][0],
+                "first_gen_step_ms": timings["gen_step"][0],
+                "warm_dis_step_ms": float(np.median(timings["dis_step"][1:])),
+                "warm_gen_step_ms": float(np.median(timings["gen_step"][1:])),
+                "warm_images_per_s": batch / (float(np.median(warm)) / 1e3),
+                "data_wait_ms": timings["data_wait"], "launches": launches,
+                "train_peak_mem_gib": train_peak,
+                "checkpoint_bytes": sum(f["size"] for f in integrity["files"].values()),
+                "checkpoint_save_s": saves, "checkpoint_files_verify_s": verify_s}
+            if family not in FUNIT_INFERS:
+                continue
+
+            # inference through the entry from a verified load of the checkpoint
+            kept, forward = [], trainer_cls.inference_forward
+
+            def keep(self, params, data, *a, _forward=forward, **k):
+                out = _forward(self, params, data, *a, **k)
+                kept.extend(zip(data["key"], out.detach().float().cpu()))
+                return out
+
+            out_dir = tmp / f"{family}_out"
+            reset_all_launches(rs, corr, cn, spade_mod)
+            trainer_cls.inference_forward = keep
+            try:
+                t0 = time.perf_counter()
+                inference.main(["--config", str(cfg_path), "--checkpoint", checkpoint,
+                                "--output_dir", str(out_dir), "--logdir",
+                                str(tmp / f"{family}_inference"), "--seed", str(ENTRY_SEED),
+                                "--device", device])
+                inference_s = time.perf_counter() - t0
+            finally:
+                trainer_cls.inference_forward = forward
+            inf_launches = all_launches(rs, corr, cn, spade_mod)
+            n_test = FUNIT_CLASSES * FUNIT_ITEMS["val"]
+            last = dict(kept)  # a key drawn twice: its PNG holds the later output
+            pngs = sorted(out_dir.rglob("*.png"))
+            if len(kept) != n_test or len(pngs) != len(last) or any(inf_launches.values()) \
+                    or not all(torch.isfinite(f).all() and float(f.abs().max()) <= 1.0
+                               for _, f in kept):
+                raise AssertionError(f"{family} inference: {len(pngs)} PNGs, {len(kept)} "
+                                     f"outputs ({len(last)} keys), launches {inf_launches}, "
+                                     f"max |out| {max(float(f.abs().max()) for _, f in kept)}")
+            png_err = 0.0
+            for key, out in last.items():
+                img = decode_png((out_dir / f"{key}.png").read_bytes())
+                want = (out.permute(1, 2, 0).numpy() + 1) * 127.5
+                if img.shape != want.shape:
+                    raise AssertionError(f"{family} inference PNG {img.shape}, output "
+                                         f"{want.shape}")
+                png_err = max(png_err, float(np.abs(img - want).max()))
+            if png_err > 1.0 + 1e-3:
+                raise AssertionError(f"{family} PNGs differ from the outputs by {png_err} "
+                                     "levels")
+            rows[family].update(
+                inference_s=inference_s, inference_items=len(kept),
+                inference_keys=len(last), inference_launches=inf_launches,
+                inference_max_abs=max(float(f.abs().max()) for _, f in kept),
+                png_vs_output_levels=png_err)
+    fwd = {}
+    for family in FUNIT_CONFIGS:
+        reset_all_launches(rs, corr, cn, spade_mod)
+        errs, fwd_ms = funit_fp32_forward(family, device, hw=fwd_hw)
+        fwd_launches = all_launches(rs, corr, cn, spade_mod)
+        if any(fwd_launches.values()) or not max(errs.values()) <= TOL_FUNIT_FWD:
+            raise AssertionError(f"fp32 {family} forward: card vs CPU {errs} (gate "
+                                 f"{TOL_FUNIT_FWD}), launches {fwd_launches}")
+        fwd[family] = {"max_rel_l2": max(errs.values()), "rel_l2": errs, "card_ms": fwd_ms,
+                       "launches": fwd_launches}
+    row = {"hw": list(hw), "classes": FUNIT_CLASSES, "items_a_class": FUNIT_ITEMS,
+           "data_s": data_s, **rows, "fp32_forward": {"hw": list(fwd_hw), **fwd},
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda
+           else "not measured",
+           "phase_s": time.perf_counter() - t_phase,
+           "nvidia_smi": nvidia_smi() if cuda else "not measured"}
+    phase("funit_entry", **row)
+    return row
+
+
 def one_hot_frame(rng):
     idx = rng.randint(0, V2V_LABELS, (1,) + V2V_HW)
     label = np.zeros((1,) + V2V_HW + (V2V_LABELS,), np.float32)
@@ -4516,6 +4820,7 @@ def main():
     wc = timed(wc_vid2vid_entry, rs, spade_mod, corr, cn)
     p2p = timed(pix2pixHD_entry, rs, spade_mod, corr, cn)
     unpaired = timed(unpaired_entry, rs, spade_mod, corr, cn)
+    funit = timed(funit_entry, rs, spade_mod, corr, cn)
     phase("phase_seconds", **seconds, total=time.perf_counter() - t0)
 
     def p2p_launches(name):
@@ -4529,6 +4834,17 @@ def main():
                for family in UNPAIRED_CONFIGS
                for part, key in (("train", "launches"), ("inference", "inference_launches"))}
         out["fp32_forward"] = unpaired["fp32_forward"]["launches"][name]
+        return out
+
+    def funit_launches(name):
+        """FUNIT and COCO-FUNIT (phase 16): instance norms and AdaIN, no
+        kernel."""
+        out = {f"{family}_train": funit[family]["launches"][name]
+               for family in FUNIT_CONFIGS}
+        out.update({f"{family}_inference": funit[family]["inference_launches"][name]
+                    for family in FUNIT_INFERS})
+        out.update({f"{family}_fp32_forward": funit["fp32_forward"][family]["launches"][name]
+                    for family in FUNIT_CONFIGS})
         return out
 
     def per_call_set(table, dtype, path="spade"):
@@ -4556,6 +4872,7 @@ def main():
         "wc_launches": {"train": wc["launches"]["spade_modulation"]},
         "p2p_launches": p2p_launches("spade_modulation"),
         "unpaired_launches": unpaired_launches("spade_modulation"),
+        "funit_launches": funit_launches("spade_modulation"),
         # the hyper route's 12 calls of a batch-1 forward at 512x512, fp32
         "fs_forward": per_call_set(rows, "float32", "fs"),
         # the 19 calls of one bs-4 generator forward, fp32, n_pairs 1
@@ -4569,6 +4886,7 @@ def main():
         "wc_launches": {"train": 0},
         "p2p_launches": p2p_launches("spade_modulation_bwd"),
         "unpaired_launches": unpaired_launches("spade_modulation_bwd"),
+        "funit_launches": funit_launches("spade_modulation_bwd"),
         "fs_backward": per_call_set(bwd_rows, "bfloat16", "fs"),
         # the 19 calls of one G step's backward, bf16 (the training path's
         # type), n_pairs 1; max_abs_err is the fp32 checks' worst error
@@ -4596,6 +4914,7 @@ def main():
                         "inference": wc["inference_launches"]["resample2d"]},
         "p2p_launches": p2p_launches("resample2d"),
         "unpaired_launches": unpaired_launches("resample2d"),
+        "funit_launches": funit_launches("resample2d"),
         # one warp of the previous (1, 3, 512, 1024) frame, fp32, mixed flow
         **{key: rs_rows[0][key] for key in
            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}, {
@@ -4609,6 +4928,7 @@ def main():
                         "fp32_g_step": wc["fp32_step_launches"]["resample2d_bwd"]},
         "p2p_launches": p2p_launches("resample2d_bwd"),
         "unpaired_launches": unpaired_launches("resample2d_bwd"),
+        "funit_launches": funit_launches("resample2d_bwd"),
         # the training warp's backward of (2, 3, 512, 1024) frames, bf16 (the
         # path's type), dflow alone (the path's), mixed flow; max_abs_err is
         # dflow's (0: bit for bit) and the fp32 dx checks' worst over the
@@ -4625,6 +4945,7 @@ def main():
                         "fp32_g_step": wc["fp32_step_launches"]["correlation"]},
         "p2p_launches": p2p_launches("correlation"),
         "unpaired_launches": unpaired_launches("correlation"),
+        "funit_launches": funit_launches("correlation"),
         # the one call of a FlowNet2 forward of one frame pair, fp32
         **{key: corr_rows[0][key] for key in
            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}, {
@@ -4637,6 +4958,7 @@ def main():
                         "fp32_g_step": wc["fp32_step_launches"]["channelnorm"]},
         "p2p_launches": p2p_launches("channelnorm"),
         "unpaired_launches": unpaired_launches("channelnorm"),
+        "funit_launches": funit_launches("channelnorm"),
         # the 6 calls (4 of 3 channels, 2 of 2) of a FlowNet2 forward of
         # one frame pair, fp32
         **{key: sum(r[key] * r["calls"] for r in cn_per_pair)
@@ -4654,6 +4976,7 @@ def main():
              "vid2vid_train_entry": v2v_train, "vid2vid_eval_entry": v2v_eval,
              "spade_eval_entry": evaluation, "fs_vid2vid_entry": fs,
              "wc_vid2vid_entry": wc, "pix2pixHD_entry": p2p, "unpaired_entry": unpaired,
+             "funit_entry": funit,
              "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)

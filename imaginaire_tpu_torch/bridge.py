@@ -13,7 +13,9 @@ parameter or buffer of the same path:
   kernels, chosen by the owner module's type (``nn.ConvTranspose2d``),
   (kh, kw, in, out) -> (in, out, kh, kw) rotated 180 degrees (the
   inverse of ``_convtranspose``); dense kernels (in, out) -> (out, in);
-- ``scale``, ``bias``, ``u``, ``mean`` and ``var`` keep their names.
+- ``scale``, ``bias``, ``u``, ``mean`` and ``var`` keep their names, as
+  do the leaves that the port keeps under the JAX names: flax ``Embed``'s
+  ``embedding`` (FUNIT's class ``embedder``) and COCO-FUNIT's ``usb``.
 
 It raises on a leaf with no counterpart, on a shape mismatch, and on any
 parameter or buffer of the module that no leaf filled. The same mapping

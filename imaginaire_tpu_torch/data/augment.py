@@ -3,18 +3,18 @@
 The same keys, in the same order, applied jointly to every data type of
 an item: ``resize_smallest_side``, ``resize_h_w``,
 ``random_resize_h_w_aspect``, ``random_scale_limit``,
-``random_rotate_90``, ``random_crop_h_w``, ``center_crop_h_w`` and
-``horizontal_flip``. ``rotate`` other than 0 raises until a later
-slice; ``rotate: 0`` is the identity, as in the JAX package. Keypoint
-data types ((N, 2+) coordinate arrays, e.g. facial landmarks) are not
-resampled but moved by the same resizes, quarter turns, crop and flip.
-Types whose frames are not arrays (pickled unprojections) pass through
-untouched.
+``rotate``, ``random_rotate_90``, ``random_crop_h_w``,
+``center_crop_h_w`` and ``horizontal_flip``. Keypoint data types ((N,
+2+) coordinate arrays, e.g. facial landmarks) are not resampled but
+moved by the same resizes, quarter turns, crop and flip; a keypoint type
+under ``rotate`` raises (not in the port yet). Types whose frames are
+not arrays (pickled unprojections) pass through untouched.
 
 Random draws come from an explicit ``random.Random`` (the dataset makes
-one an item), in the JAX package's order: scale, rot90, crop, flip. The
-JAX package draws them from the global ``random`` module; handing the
-port ``random.Random(s)`` reproduces ``random.seed(s)`` there.
+one an item), in the JAX package's order: scale, rotation, rot90, crop,
+flip. The JAX package draws them from the global ``random`` module;
+handing the port ``random.Random(s)`` reproduces ``random.seed(s)``
+there.
 
 Resizing reproduces ``cv2.resize`` (the JAX package's), computed here in
 numpy because the GPU machine has no OpenCV: ``dsize`` is (w, h);
@@ -22,6 +22,16 @@ numpy because the GPU machine has no OpenCV: ``dsize`` is (w, h);
 uint8 uses half-pixel centres, 11-bit fixed-point weights and OpenCV's
 vectorized rounding of the vertical pass, and an exact halving averages
 2x2 blocks as OpenCV does.
+
+``rotate: r`` turns the frame by an angle drawn uniformly in [-r, r]
+degrees about its centre, as ``cv2.getRotationMatrix2D((w / 2, h / 2),
+angle, 1)`` and ``cv2.warpAffine`` with the type's interpolator and a
+constant 0 border do (the JAX package's): the source coordinates in fp32
+from the inverted matrix, each a fused multiply-add of fp32 operands,
+then the taps' fp32 lerps (a tap outside the frame reads 0) rounded to
+the nearest integer. It lands within one 8-bit level of OpenCV 5's
+``warpAffine``. Only the ``BILINEAR`` interpolator rotates in the port
+yet: at ``NEAREST`` a rounding tie can pick the neighbouring pixel.
 
 The teacher flow cache reads two things of each call, kept per thread
 (the loader's threads share one augmentor): ``last_record``, the call's
@@ -132,6 +142,64 @@ def resize(img, hw, interpolator):
     return _resize_linear(img, h, w)
 
 
+# ------------------------------------------------------------ rotation
+
+
+def rotation_matrix(center, angle):
+    """``cv2.getRotationMatrix2D(center, angle, 1.0)``: (2, 3) float64,
+    ``angle`` in degrees, counter-clockwise."""
+    a = np.deg2rad(angle)
+    alpha, beta = np.cos(a), np.sin(a)
+    cx, cy = center
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]])
+
+
+def _invert_affine(m):
+    """``cv2.invertAffineTransform``."""
+    d = m[0, 0] * m[1, 1] - m[0, 1] * m[1, 0]
+    d = 1.0 / d if d != 0 else 0.0
+    a11, a22, a12, a21 = m[1, 1] * d, m[0, 0] * d, -m[0, 1] * d, -m[1, 0] * d
+    return np.array([[a11, a12, -a11 * m[0, 2] - a12 * m[1, 2]],
+                     [a21, a22, -a21 * m[0, 2] - a22 * m[1, 2]]])
+
+
+def rotate(img, angle, interpolator):
+    """``cv2.warpAffine(img, getRotationMatrix2D((w / 2, h / 2), angle,
+    1), (w, h), flags=...)`` of an (H, W, C) array, constant 0 border."""
+    if interpolator not in (None, "BILINEAR"):
+        raise NotImplementedError(
+            f"rotate with the {interpolator!r} interpolator is not in the port "
+            f"yet (ROADMAP.md); it rotates BILINEAR")
+    h, w = img.shape[:2]
+    inv = _invert_affine(rotation_matrix((w / 2, h / 2), angle))
+    inv = inv.astype(np.float32).astype(np.float64)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    # x * m0 + (y * m1 + m2), each a fused multiply-add rounded to fp32
+    src_x, src_y = (
+        (inv[i, 0] * xs + (inv[i, 1] * ys + inv[i, 2]).astype(np.float32)).astype(np.float32)
+        for i in (0, 1))
+
+    def tap(y, x):
+        inside = (y >= 0) & (y < h) & (x >= 0) & (x < w)
+        return img[np.clip(y, 0, h - 1), np.clip(x, 0, w - 1)] * inside[..., None]
+
+    x0, y0 = np.floor(src_x), np.floor(src_y)
+    ax = (src_x - x0).astype(np.float64)[..., None]
+    ay = (src_y - y0).astype(np.float64)[..., None]
+    x0, y0 = x0.astype(np.int64), y0.astype(np.int64)
+    p00, p01 = tap(y0, x0).astype(np.float32), tap(y0, x0 + 1).astype(np.float32)
+    p10, p11 = tap(y0 + 1, x0).astype(np.float32), tap(y0 + 1, x0 + 1).astype(np.float32)
+    # each lerp a fused multiply-add rounded to fp32
+    top = (p00 + ax * (p01 - p00)).astype(np.float32)
+    bottom = (p10 + ax * (p11 - p10)).astype(np.float32)
+    out = (top + ay * (bottom - top)).astype(np.float32)
+    if np.issubdtype(img.dtype, np.integer):
+        info = np.iinfo(img.dtype)
+        return np.clip(np.rint(out), info.min, info.max).astype(img.dtype)
+    return out.astype(img.dtype)
+
+
 # --------------------------------------------------------- augmentor
 
 
@@ -140,10 +208,10 @@ class Augmentor:
         self.cfg = dict(aug_cfg or {})
         self.interpolators = dict(interpolators or {})
         self.keypoint_data_types = list(keypoint_data_types or [])
-        if float(self.cfg.get("rotate", 0) or 0):
+        if float(self.cfg.get("rotate", 0) or 0) and self.keypoint_data_types:
             raise NotImplementedError(
-                f"augmentations.rotate={self.cfg['rotate']} is not in the "
-                "port yet (ROADMAP.md); rotate: 0 is the identity")
+                f"augmentations.rotate with keypoint data types "
+                f"{self.keypoint_data_types} is not in the port yet (ROADMAP.md)")
         self.max_time_step = int(self.cfg.get("max_time_step", 1))
         self.capture_canonical_types = set()
         self._tls = threading.local()
@@ -181,6 +249,9 @@ class Augmentor:
             scale = 1.0 + rng.uniform(0, float(cfg["random_scale_limit"]))
             h, w = int(round(h * scale)), int(round(w * scale))
             ops.append(("resize", (h, w)))
+        rotation = float(cfg.get("rotate", 0) or 0)
+        if rotation:
+            ops.append(("rotate", rng.uniform(-rotation, rotation)))
         if cfg.get("random_rotate_90", False):
             ops.append(("rot90", rng.randint(0, 3)))
         crop = None
@@ -240,6 +311,8 @@ class Augmentor:
         for op, arg in ops:
             if op == "resize":
                 img = resize(img, arg, interp)
+            elif op == "rotate":
+                img = rotate(img, arg, interp)
             elif op == "rot90":
                 img = np.rot90(img, arg)
             elif op == "crop":

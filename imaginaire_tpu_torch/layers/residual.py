@@ -24,6 +24,7 @@ from imaginaire_tpu_torch.layers.conv import Conv2dBlock, _norm_channels
 from imaginaire_tpu_torch.layers.hyper_ops import per_sample_conv2d
 from imaginaire_tpu_torch.layers.nonlinearity import apply_nonlinearity, needs_prelu_param
 from imaginaire_tpu_torch.layers.state import cast_param
+from imaginaire_tpu_torch.utils.misc import upsample_2x
 
 
 def _split_order(order):
@@ -36,14 +37,18 @@ def _split_order(order):
 
 
 class Res2dBlock(nn.Module):
+    upsample = False  # UpRes2dBlock: 2x nearest after conv_0 and on the shortcut
+
     def __init__(self, in_channels, out_channels, kernel_size=3, padding=None,
                  bias=True, padding_mode="zeros", weight_norm_type="",
                  weight_norm_params=None, activation_norm_type="",
                  activation_norm_params=None, skip_activation_norm=True,
-                 nonlinearity="leakyrelu", order="CNACNA"):
+                 skip_nonlinearity=False, nonlinearity="leakyrelu", order="CNACNA",
+                 hidden_channels_equal_out_channels=False):
         super().__init__()
         order0, order1 = _split_order(order)
-        hidden = min(in_channels, out_channels)
+        hidden = (out_channels if hidden_channels_equal_out_channels
+                  else min(in_channels, out_channels))
         if isinstance(bias, (tuple, list)):
             bias_0, bias_1, bias_s = bias
         else:
@@ -61,16 +66,30 @@ class Res2dBlock(nn.Module):
                                   bias=bias_1, **common)
         self.conv_s = None
         if in_channels != out_channels:
-            common.update(kernel_size=1, padding=0, nonlinearity="")
+            common.update(kernel_size=1, padding=0,
+                          nonlinearity=nonlinearity if skip_nonlinearity else "")
             if not skip_activation_norm:
                 common["activation_norm_type"] = ""
             self.conv_s = Conv2dBlock(in_channels, out_channels, order=order0,
                                       bias=bias_s, **common)
 
+    def _scale_up(self, x):
+        return upsample_2x(x) if self.upsample else x
+
     def forward(self, x, *cond_inputs):
-        dx = self.conv_1(self.conv_0(x, *cond_inputs), *cond_inputs)
-        xs = x if self.conv_s is None else self.conv_s(x, *cond_inputs)
+        dx = self._scale_up(self.conv_0(x, *cond_inputs))
+        dx = self.conv_1(dx, *cond_inputs)
+        xs = self._scale_up(x)
+        if self.conv_s is not None:
+            xs = self.conv_s(xs, *cond_inputs)
         return xs + dx
+
+
+class UpRes2dBlock(Res2dBlock):
+    """``Res2dBlock`` with a 2x nearest upsample after the first conv and
+    on the shortcut, before its conv."""
+
+    upsample = True
 
 
 class _HyperConvNorm(nn.Module):

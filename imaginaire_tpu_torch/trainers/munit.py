@@ -56,6 +56,16 @@ def _leaves(tree):
     return [tree]
 
 
+def at_start(module, prefix, start, *args, **kwargs):
+    """``module`` (the part of a network at ``prefix``) applied to
+    ``args`` from the buffers ``start`` ({name: tensor} of the whole
+    network, e.g. as a step began), writing none."""
+    params = {k: v for k, v in module.named_parameters()}
+    params.update({k[len(prefix):]: v for k, v in start.items() if k.startswith(prefix)})
+    with state_updates(module, False):
+        return torch.func.functional_call(module, params, args, kwargs)
+
+
 class _Inference(torch.nn.Module):
     """``g.inference`` as a module's forward, for ``functional_call``."""
 
@@ -181,25 +191,16 @@ class Trainer(BaseTrainer):
         if not extra:
             return losses
 
-        def at_start(module, prefix, *args, **kwargs):
-            """``module`` (a part of D at ``prefix``) from the step's
-            starting buffers, writing none."""
-            params = {k: v for k, v in module.named_parameters()}
-            params.update({k[len(prefix):]: v for k, v in start.items()
-                           if k.startswith(prefix)})
-            with state_updates(module, False):
-                return torch.func.functional_call(module, params, args, kwargs)
-
         if "gp" in self.weights:
             losses["gp"] = sum(
                 gradient_penalty(lambda x, n=name: at_start(
-                    getattr(self.net_D, n), f"{n}.", x)[0], out[key])
+                    getattr(self.net_D, n), f"{n}.", start, x)[0], out[key])
                 for name, key in (("dis_a", "images_ba"), ("dis_b", "images_ab")))
         if "consistency_reg" in self.weights:
             src = dict(data, **out)
             aug = {k: random_shift(torch.flip(src[k], dims=(3,)), shift)
                    for k, shift in zip(SHIFTED, noise["shifts"])}
-            d_aug = at_start(self.net_D, "", aug, aug, real=True)
+            d_aug = at_start(self.net_D, "", start, aug, aug, real=True)
             reg = torch.zeros((), device=self.device)
             for name in ("fea_ba", "fea_ab", "fea_a", "fea_b"):
                 for xa, xb in zip(_leaves(d_aug[name]), _leaves(d_out[name])):

@@ -833,3 +833,38 @@ def test_wc_vid2vid_partial_conv_generator_through_the_warp_kernel_matches_plain
     got, want = runs["kernel"][0], runs["plain"][0]
     assert got.shape == (1, 3, 64, 64) and torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_funit_generators_on_the_card_match_the_cpu(cuda_device):
+    """FUNIT's and COCO-FUNIT's generators of the unit configs at 64x64,
+    batch 2: the training forward (translation and reconstruction) and
+    ``inference`` on the card against the CPU at the same weights, fp32
+    with TF32 off, within 1e-4 in relative L2; AdaIN's gamma and beta
+    broadcast over space, so no kernel launches."""
+    from imaginaire_tpu_torch.config import Config
+    from imaginaire_tpu_torch.models.generators.coco_funit import Generator as COCOFUNIT
+    from imaginaire_tpu_torch.models.generators.funit import Generator as FUNIT
+
+    gen = torch.Generator().manual_seed(7)
+    data = {k: torch.rand((2, 3, 64, 64), generator=gen) * 2 - 1
+            for k in ("images_content", "images_style")}
+    for name, cls in (("funit", FUNIT), ("coco_funit", COCOFUNIT)):
+        cfg = Config(str(UNIT_CONFIG.parent / f"{name}.yaml"))
+        cpu_net = cls(cfg.gen, cfg.data).eval()
+        init_weights(cpu_net, torch.Generator().manual_seed(8), "kaiming", 1.0)
+        net = cls(cfg.gen, cfg.data).to(cuda_device).eval()
+        net.load_state_dict(cpu_net.state_dict())
+        launches = (spade_mod.launches, spade_mod.bwd_launches, rs.launches,
+                    rs.bwd_launches, corr.launches, cn.launches)
+        dev = {k: v.to(cuda_device) for k, v in data.items()}
+        with torch.no_grad():
+            want = dict(cpu_net(data), inference=cpu_net.inference(data))
+            got = dict(net(dev), inference=net.inference(dev))
+        assert (spade_mod.launches, spade_mod.bwd_launches, rs.launches, rs.bwd_launches,
+                corr.launches, cn.launches) == launches
+        for k, w in want.items():
+            g = got[k].cpu()
+            assert g.shape == (2, 3, 64, 64) and torch.isfinite(g).all()
+            assert float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w)) \
+                <= 1e-4, (name, k)

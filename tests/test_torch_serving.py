@@ -156,7 +156,8 @@ def test_config_types_resolve_to_the_port():
     assert registry.resolve("imaginaire_tpu.trainers.vid2vid", "Trainer") \
         .__module__ == "imaginaire_tpu_torch.trainers.vid2vid"
     with pytest.raises(ModuleNotFoundError, match="ROADMAP"):
-        registry.resolve("imaginaire_tpu.trainers.funit", "Trainer")
+        registry.resolve("imaginaire_tpu.models.discriminators.mlp_multiclass",
+                         "Discriminator")
 
 
 def test_engine_refuses_pix2pixHD():

@@ -385,7 +385,7 @@ def test_adam_matches_optax_over_three_steps(section):
             np.testing.assert_allclose(p.numpy(), np.asarray(jparams[k]), rtol=1e-6, atol=0)
     assert opt.count == 3
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_optimizer_for_params(dict(type="rmsprop"), tparams)
+        get_optimizer_for_params(dict(type="sgd"), tparams)
 
 
 @pytest.mark.parametrize("num_updates", [3, 12])
