@@ -256,7 +256,7 @@ Phases, one line each; any failure exits non-zero:
    printed;
 16. FUNIT and COCO-FUNIT (``funit_entry``, after phase 15): a seeded
    packed few-shot dataset (RGB PNG, 288x320; 3 content and 3 style
-   classes of 4 training images each, 2 validation images a class, each
+   classes of 6 training images each, 2 validation images a class, each
    type its own file list), ``ext: png``, a test split copied from the
    val split, phase 15's forced cadences.
    configs/projects/coco_funit/mammals/base64_bs8_class305.yaml (batch 8,
@@ -275,7 +275,37 @@ Phases, one line each; any failure exits non-zero:
    every count must be 0. Parameters, the first and warm iteration ms, D
    and G step ms, peak memory, the checkpoint's bytes and save seconds,
    the inference seconds and the phase's seconds are printed;
-17. a ``phase_seconds`` line, a ``kernels`` JSON line, the nvidia-smi
+17. vid2vid dancing (``check_pose_kernels``, then ``pose_vid2vid_entry``,
+   after phase 16): resample2d, its backward (dflow), correlation and
+   channelnorm held against their plain versions at the dancing path's
+   512x512 shapes (G's and the teacher's (2, 3, 512, 512) warps, FlowNet2C's
+   (2, 256, 64, 64) features, the teacher's (2, 3 | 2, 512, 512)
+   differences and flows), fp32 and bf16, and timed beside their plain
+   versions, bounds and library calls; then a seeded folder dataset of 4
+   sequences of 6 frames (512x640 RGB PNG; OpenPose JSON in the
+   repository fixture's layout: a moving dancer, frames with one or both
+   hands missing, one frame with a second, smaller dancer beside a main
+   one with no hands) and a one-sequence test split;
+   configs/projects/vid2vid/dancing/bf16.yaml with the override its loader
+   needs (``data.for_pose_dataset.pose_one_hot: True``: ROADMAP.md §C,
+   C12), the two ``allow_random_init`` and ``ext: png``.
+   ``imaginaire_tpu_torch.train.main`` trains 2 iterations in-process
+   (batch 2, 512x512 crops, sequence length 4, bf16, the image, face and
+   hand Ds, the teacher in the G step; resample2d 14, its backward 2,
+   correlation 2 and channelnorm 12 an iteration, the modulation 0: the
+   SPADE norms have a BatchNorm base); the losses, ``GAN_face`` and
+   ``GAN_hand`` among them, are finite, the hands each G step's hand D
+   weighs equal those the seeded skeletons show in its frames (the
+   second dancer's hands not among them), and the checkpoint verifies;
+   one fp32 warp-frame G step (TF32 off) with its region losses is held
+   within 1e-3 of the same step through the plain versions
+   (``fp32_warp_g_step``); ``imaginaire_tpu_torch.inference.main`` writes
+   the test sequence's 4 frames (finite, in [-1, 1]; resample2d 2). The
+   parameters, the first and warm iteration ms, D and G step ms by frame
+   type, the data wait, peak memory, the region losses, the hands
+   counted, the checkpoint's bytes and save seconds, the inference
+   seconds and the phase's seconds are printed;
+18. a ``phase_seconds`` line, a ``kernels`` JSON line, the nvidia-smi
    line, and the final JSON line.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -1609,7 +1639,10 @@ FUNIT_CONFIGS = {
     "funit": REPO / "configs/projects/funit/animal_faces/base64_bs8_class119.yaml"}
 FUNIT_INFERS = ("coco_funit",)
 FUNIT_CLASSES = 3  # content and style classes each
-FUNIT_ITEMS = {"train": 4, "val": 2}  # images a class
+# images a class: 18 training images make 2 batches of 8 an epoch, so the
+# 2 iterations end inside epoch 0 and save once (at max_iter), not also at
+# the end of a one-batch epoch 0
+FUNIT_ITEMS = {"train": 6, "val": 2}
 FUNIT_HW = (288, 320)
 FUNIT_ITERATIONS = 2
 FUNIT_BATCH = 8
@@ -4302,6 +4335,439 @@ def funit_entry(rs, spade_mod, corr, cn, device="cuda", overrides=None, hw=FUNIT
     return row
 
 
+# vid2vid dancing (phase 17): a seeded pose dataset, 4 sequences of
+# 6 frames at 512x640 (the smaller side 512, as the config's resize
+# expects) with one dancer a frame, OpenPose JSON in the layout of the
+# repository's fixture (75 body, 210 face, 63 + 63 hand values), and a
+# one-sequence test split; configs/projects/vid2vid/dancing/bf16.yaml
+# with the override its loader needs (ROADMAP.md §C, C12), 2 iterations at
+# batch 2, sequence length 4, bf16
+POSE_CONFIG = REPO / "configs/projects/vid2vid/dancing/bf16.yaml"
+POSE_SEQUENCES, POSE_FRAMES, POSE_HW, POSE_CROP = 4, 6, (512, 640), (512, 512)
+POSE_TEST_FRAMES = 4
+POSE_ITERATIONS, POSE_SEQ, POSE_BATCH = 2, 4, 2
+# (sequence, frame) -> the hands (left, right) its dancer shows; every
+# other frame shows both. Frame 4 of sequence 2 holds a second, smaller
+# dancer with both hands beside a main one with none: largest-only keeps
+# the main one, so its hands count 0
+POSE_HANDS = {(0, 1): (False, True), (1, 3): (True, False), (2, 2): (False, False),
+              (2, 4): (False, False), (3, 5): (True, False)}
+POSE_SECOND_DANCER = (2, 4)
+POSE_C12 = {"data": {"for_pose_dataset": {"pose_one_hot": True}}}
+POSE_OVERRIDES = {"logging_iter": 1, "snapshot_save_iter": 1000,
+                  "snapshot_save_epoch": 1000, "image_save_iter": 1000,
+                  "trainer": {"speed_benchmark": True,
+                              "perceptual_loss": {"allow_random_init": True}},
+                  "flow_network": {"allow_random_init": True}}
+# BODY_25 keypoints of a standing dancer: (x, y) in units of its height
+# from the top of its head, x to the image's right
+BODY_25 = np.array([
+    (0.0, 0.08), (0.0, 0.18), (-0.1, 0.19), (-0.14, 0.32), (-0.16, 0.44),
+    (0.1, 0.19), (0.14, 0.32), (0.16, 0.44), (0.0, 0.5), (-0.06, 0.5),
+    (-0.07, 0.72), (-0.07, 0.94), (0.06, 0.5), (0.07, 0.72), (0.07, 0.94),
+    (-0.02, 0.065), (0.02, 0.065), (-0.04, 0.075), (0.04, 0.075), (0.1, 0.98),
+    (0.12, 0.98), (0.06, 0.97), (-0.1, 0.98), (-0.12, 0.98), (-0.06, 0.97)])
+
+
+def openpose_person(cx, top, height, phase_, rng, hands=(True, True)):
+    """One OpenPose ``people`` entry: a dancer centred at ``cx`` whose arms
+    swing with ``phase_``; 70 face keypoints on the head and 21 a hand
+    around the wrists, a missing hand all zeros (OpenPose's layout)."""
+    body = BODY_25.copy()
+    swing = 0.06 * np.sin(phase_)
+    body[[3, 4], 1] -= [swing, 2 * swing]
+    body[[6, 7], 1] += [swing, 2 * swing]
+    xy = body * height + [cx, top]
+    xy += rng.normal(0, 0.5, xy.shape)
+
+    def with_conf(pts, lo):
+        return np.concatenate([pts, rng.uniform(lo, 1.0, (len(pts), 1))], 1)
+
+    head = xy[0] + [0, -0.01 * height]
+    ang = np.linspace(0.0, 2 * np.pi, 70, endpoint=False)
+    face = head + np.stack([np.cos(ang), np.sin(ang)], 1) * [0.035 * height, 0.045 * height]
+    person = {"pose_keypoints_2d": with_conf(xy, 0.6).ravel().tolist(),
+              "face_keypoints_2d": with_conf(face, 0.7).ravel().tolist()}
+    for key, wrist, sign, present in (("hand_left_keypoints_2d", 7, 1, hands[0]),
+                                      ("hand_right_keypoints_2d", 4, -1, hands[1])):
+        if not present:
+            person[key] = [0.0] * 63
+            continue
+        fingers = [xy[wrist]]
+        for f in range(5):
+            a = np.pi / 2 + sign * (f - 2) * 0.35
+            for j in range(1, 5):
+                fingers.append(xy[wrist] + 0.022 * height * j * np.array([np.cos(a) * sign,
+                                                                          np.sin(a)]))
+        person[key] = with_conf(np.array(fingers), 0.5).ravel().tolist()
+    return person
+
+
+def write_pose_dataset(root, sequences=POSE_SEQUENCES, frames=POSE_FRAMES, hw=POSE_HW,
+                       seed=ENTRY_SEED, packed=True):
+    """Seeded RGB frames (PNG through the port's encoder) and OpenPose
+    JSON under ``root/raw``, one dancer a frame moving across the
+    sequence, the hands of ``POSE_HANDS``; packed by
+    ``build_packed_dataset`` into ``root/packed`` (or left as folders).
+    Returns the dataset's root."""
+    from imaginaire_tpu_torch.data.backends import build_packed_dataset
+    from imaginaire_tpu_torch.data.png import write_png
+
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    raw = Path(root) / "raw"
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    for s_ in range(sequences):
+        tint = rng.uniform(0.3, 1.0, 3)
+        for t in range(frames):
+            waves = np.sin(xs * 0.03 + ys * 0.02 + t * 0.4 + s_)
+            img = (0.5 + 0.35 * waves[..., None] * tint) + rng.normal(0, 0.03, (h, w, 3))
+            height = 0.6 * h
+            people = [openpose_person(w / 2 + 8 * np.sin(t + s_), 0.2 * h, height,
+                                      t * 0.7 + s_, rng, POSE_HANDS.get((s_, t), (True, True)))]
+            if (s_, t) == POSE_SECOND_DANCER:
+                people.append(openpose_person(0.12 * w, 0.5 * h, 0.3 * h, t, rng))
+            for kind, ext in (("images", "png"), ("poses-openpose", "json")):
+                (raw / kind / f"seq{s_:04d}").mkdir(parents=True, exist_ok=True)
+            write_png(raw / "images" / f"seq{s_:04d}" / f"{t:05d}.png",
+                      np.clip(img * 255, 0, 255).astype(np.uint8))
+            (raw / "poses-openpose" / f"seq{s_:04d}" / f"{t:05d}.json").write_text(
+                json.dumps({"people": people}))
+    if not packed:
+        return str(raw)
+    return build_packed_dataset(str(raw), str(Path(root) / "packed"),
+                                ["images", "poses-openpose"])
+
+
+def check_pose_kernels(rs, corr, cn):
+    """Phase 3e: the four kernels of the dancing path at its 512x512
+    shapes, against their plain versions, fp32 and bf16: resample2d and
+    its backward (dflow, as the path runs it) on G's (2, 3, 512, 512)
+    warp and the teacher's, correlation on the teacher's FlowNetC
+    features (2, 256, 64, 64), channelnorm on its (2, 3 | 2, 512, 512)
+    differences and flows; each timed (fp32; the backward in the path's
+    bf16) beside its plain version, its bound and the library call where
+    one computes it. Returns {kernel: row}."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(97531)
+    b, (h, w) = POSE_BATCH, POSE_CROP
+    img = (b, 3, h, w)
+    x32 = torch.randn(img, generator=gen, device="cuda") * 2 + 0.5
+    g32 = torch.randn(img, generator=gen, device="cuda")
+    flow = mixed_flow(img, gen)
+    rows, errs = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x, f, g = x32.to(dtype), flow.to(dtype), g32.to(dtype)
+        with torch.no_grad():
+            got = rs.resample2d(x, f)
+        want = rs.resample2d_plain(x, f)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if dtype == torch.bfloat16:
+            err /= want.float().abs().max().item()
+        if err > (TOL_RESAMPLE_FP32 if dtype == torch.float32 else TOL_RESAMPLE_BF16_REL):
+            raise AssertionError(f"resample2d {img} {dtype}: error {err}")
+        errs.setdefault("resample2d", []).append(err)
+        _, dflow = rs.resample2d_bwd(x, f, g, False)
+        bitwise, _, ok = resample_bwd_errors(rs, x, f, g, None, dflow)
+        if not ok:
+            raise AssertionError(f"resample2d_bwd {img} {dtype}: dflow not bit for bit")
+        errs.setdefault("resample2d_bwd", []).append(0.0)
+        phase("kernel_check", name="resample2d", shape=list(img), path="pose",
+              dtype=str(dtype).split(".")[-1], error=err, dflow_bitwise=bitwise)
+    bound, bound_by = resample_bound_ms(img, 4)
+    rows["resample2d"] = dict(time_resample(rs, x32, flow), shape=list(img), calls=1,
+                              plain_ms=time_ms(lambda: rs.resample2d_plain(x32, flow)),
+                              bound_ms=bound, bound_by=bound_by)
+    x, f, g = x32.bfloat16(), flow.bfloat16(), g32.bfloat16()
+    bound, bound_by = resample_bwd_bound_ms(img, 2, False)
+    rows["resample2d_bwd"] = {
+        "shape": list(img), "calls": 1, "dtype": "bfloat16", "need_dx": False,
+        "ms": time_ms(lambda: rs.resample2d_bwd(x, f, g, False)),
+        "plain_ms": time_ms(lambda: rs.resample2d_bwd_plain(x, f, g, False), iters=5),
+        "library_ms": time_ms(grid_sample_bwd(x, f, g, False)),
+        "bound_ms": bound, "bound_by": bound_by}
+    feat = (b, 256, h // 8, w // 8)
+    x1 = torch.randn(feat, generator=gen, device="cuda")
+    x2 = torch.randn(feat, generator=gen, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        a, c = x1.to(dtype), x2.to(dtype)
+        with torch.no_grad():
+            got = corr.correlation(a, c, **FLOWNETC)
+        errs.setdefault("correlation", []).append(check_against_plain(
+            "correlation", got, corr.correlation_plain(a, c, **FLOWNETC), dtype,
+            TOL_CORR_FP32, shape=list(feat), path="pose"))
+    n_d = corr.num_displacements(FLOWNETC["max_displacement"], FLOWNETC["stride2"])
+    bound, bound_by, route = correlation_bound_ms(feat, n_d * n_d, 4)
+    rows["correlation"] = {
+        "shape": list(feat), "calls": 1, "bound_route": route,
+        "ms": time_ms(lambda: corr.correlation(x1, x2, **FLOWNETC)),
+        "plain_ms": time_ms(lambda: corr.correlation_plain(x1, x2, **FLOWNETC), iters=5,
+                            warmup=1),
+        "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+    cn_row = {"shapes": [], "calls": [], "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+              "library_ms": 0.0}
+    for shape, calls in (((b, 3, h, w), 4), ((b, 2, h, w), 2)):
+        x = torch.randn(shape, generator=gen, device="cuda") * 10
+        for dtype in (torch.float32, torch.bfloat16):
+            with torch.no_grad():
+                got = cn.channelnorm(x.to(dtype))
+            errs.setdefault("channelnorm", []).append(check_against_plain(
+                "channelnorm", got, cn.channelnorm_plain(x.to(dtype)), dtype, TOL_CN_FP32,
+                shape=list(shape), path="pose"))
+        cn_row["shapes"].append(list(shape))
+        cn_row["calls"].append(calls)
+        cn_row["ms"] += calls * time_ms(lambda: cn.channelnorm(x))
+        cn_row["plain_ms"] += calls * time_ms(lambda: cn.channelnorm_plain(x))
+        cn_row["library_ms"] += calls * time_ms(lambda: torch.linalg.vector_norm(
+            x, 2, dim=1, keepdim=True))
+        bound, cn_row["bound_by"] = channelnorm_bound_ms(shape, 4)
+        cn_row["bound_ms"] += calls * bound
+    rows["channelnorm"] = cn_row
+    for name, row in rows.items():
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["max_abs_err"] = errs[name][0]  # fp32: max-abs; dflow bit for bit
+        phase("kernel", name=name, path="pose", **row)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def pose_entry_config(root, data_root, test_root, overrides=None):
+    """The dancing config with the C12 override, its splits pointed at the
+    folder dataset (``ext: png`` for the frames) and a test split at the
+    one-sequence dataset, short cadences and ``speed_benchmark``, then
+    ``overrides``; written to ``root / pose.yaml``."""
+    import yaml
+
+    from imaginaire_tpu_torch.config import load_yaml, recursive_update
+
+    cfg = load_yaml(POSE_CONFIG)
+    for split in ("train", "val"):
+        cfg["data"][split]["roots"] = [data_root]
+    cfg["data"]["input_types"][0]["images"]["ext"] = "png"
+    for section in (POSE_C12, POSE_OVERRIDES, overrides or {}):
+        recursive_update(cfg, copy.deepcopy(section))
+    data = cfg["data"]
+    cfg["test_data"] = {
+        key: copy.deepcopy(data[key]) for key in (
+            "name", "type", "num_workers", "num_frames_G", "num_frames_D",
+            "for_pose_dataset", "has_foreground", "input_types", "input_image",
+            "input_labels", "keypoint_data_types")}
+    cfg["test_data"]["test"] = dict(copy.deepcopy(data["val"]), roots=[test_root])
+    path = Path(root) / "pose.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def pose_vid2vid_entry(rs, spade_mod, corr, cn, device="cuda", overrides=None, hw=POSE_HW):
+    """Phase 17: vid2vid dancing through the port's entries: ``train.main``
+    for 2 iterations (batch 2, 512x512 crops, sequence length 4, bf16,
+    the face and hand Ds, the teacher in the G step) on a seeded folder
+    pose dataset, the hands each G step's hand D weighs held to the
+    seeded skeletons, the checkpoint verified, one fp32 warp-frame G step
+    (with its region losses) through the kernels against their plain
+    versions, and ``inference.main`` on the one-sequence test split.
+    The six launch counters are reset just before and read just after
+    each part."""
+    import gc
+
+    from imaginaire_tpu_torch import inference, train
+    from imaginaire_tpu_torch.data import get_train_and_val_dataloader
+    from imaginaire_tpu_torch.resilience.integrity import verify_files
+    from imaginaire_tpu_torch.trainers.vid2vid import Trainer
+    from imaginaire_tpu_torch.utils import checkpoint as ckpt_lib
+    from imaginaire_tpu_torch.utils.meters import ScalarWriter
+
+    cuda = device == "cuda"
+    torch.backends.cudnn.allow_tf32 = True  # training runs the defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="pose_entry_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        data_root = write_pose_dataset(tmp / "train", hw=hw, packed=False)
+        test_root = write_pose_dataset(tmp / "test", sequences=1, frames=POSE_TEST_FRAMES,
+                                       hw=hw, seed=ENTRY_SEED + 1, packed=False)
+        data_s = time.perf_counter() - t0
+        cfg_path = pose_entry_config(tmp, data_root, test_root, overrides)
+        logdir = tmp / "log"
+        saves, keys, regions = [], [], []
+        save, gen_update, region = (Trainer.save_checkpoint, Trainer.gen_update,
+                                    Trainer._region_d_losses)
+
+        def timed_save(self, *a, **k):
+            t = time.perf_counter()
+            path = save(self, *a, **k)
+            saves.append(time.perf_counter() - t)
+            return path
+
+        def keyed_update(self, data, *a, **k):
+            keys.append(list(data["key"]))
+            return gen_update(self, data, *a, **k)
+
+        def kept_regions(self, d_out, losses, dis_update):
+            out = region(self, d_out, losses, dis_update)
+            if not dis_update:
+                regions.append({"valid": d_out["hand"]["valid"].detach(),
+                                **{k: out[k].detach() for k in ("GAN_face", "GAN_hand")}})
+            return out
+
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        reset_all_launches(rs, corr, cn, spade_mod)
+        Trainer.save_checkpoint, Trainer.gen_update = timed_save, keyed_update
+        Trainer._region_d_losses = kept_regions
+        try:
+            t0 = time.perf_counter()
+            trainer = train.main(["--config", str(cfg_path), "--logdir", str(logdir),
+                                  "--seed", str(ENTRY_SEED), "--device", device,
+                                  "--max_iter", str(POSE_ITERATIONS)])
+            train_s = time.perf_counter() - t0
+        finally:
+            Trainer.save_checkpoint, Trainer.gen_update = save, gen_update
+            Trainer._region_d_losses = region
+        launches = all_launches(rs, corr, cn, spade_mod)
+        peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else "not measured"
+        want = dict({k: POSE_ITERATIONS * n for k, n in V2V_ENTRY_LAUNCHES.items()},
+                    spade_modulation=0, spade_modulation_bwd=0)
+        batch = int(trainer.cfg.data.train.batch_size)
+        if launches != want or trainer.compute_dtype != torch.bfloat16 \
+                or trainer.sequence_length != POSE_SEQ or batch != POSE_BATCH \
+                or trainer.add_dis_names != ["face", "hand"]:
+            raise AssertionError(f"pose training entry: launches {launches} (expected "
+                                 f"{want}), compute dtype {trainer.compute_dtype}, sequence "
+                                 f"length {trainer.sequence_length}, batch {batch}, region "
+                                 f"Ds {trainer.add_dis_names}")
+        scalars = [r for r in ScalarWriter(logdir).read() if r["kind"] == "counter"
+                   and r["name"].split("/")[0] in ("gen_update", "dis_update")]
+        names = {r["name"] for r in scalars}
+        bad = [r for r in scalars if not np.isfinite(r["value"])
+               or r["name"].endswith("nonfinite_count")]
+        want_terms = {f"gen_update/{k}" for k in trainer.weights if k != "Flow"} | {
+            "dis_update/GAN_face", "dis_update/GAN_hand", "dis_update/GAN"}
+        if bad or not want_terms <= names:
+            raise AssertionError(f"meters.jsonl: {sorted(names)}, non-finite {bad[:5]}, "
+                                 f"expected {sorted(want_terms)}")
+        # the hands each G step's hand D weighed, against the skeletons:
+        # frame t of a window ending at <seq>/<last> is frame last - (T - 1 - t)
+        got_valid = [r["valid"].float().cpu().tolist() for r in regions]
+        want_valid = []
+        for batch_keys in keys:
+            for t in range(POSE_SEQ):
+                frames = [(int(k.split("/")[0][3:]), int(k.split("/")[1]) - (POSE_SEQ - 1 - t))
+                          for k in batch_keys]
+                hands = [POSE_HANDS.get(f, (True, True)) for f in frames]
+                want_valid.append([float(h[0]) for h in hands] + [float(h[1]) for h in hands])
+        region_losses = {k: [float(r[k]) for r in regions] for k in ("GAN_face", "GAN_hand")}
+        if got_valid != want_valid or not all(np.isfinite(v) for vs in region_losses.values()
+                                              for v in vs):
+            raise AssertionError(f"hand validity a G step {got_valid}, the skeletons hold "
+                                 f"{want_valid}; region losses {region_losses}")
+        checkpoint = ckpt_lib.latest_checkpoint_path(str(logdir))
+        integrity = ckpt_lib.read_integrity_sidecar(checkpoint)
+        t0 = time.perf_counter()
+        verify_files(checkpoint, integrity["files"], context=checkpoint)
+        verify_s = time.perf_counter() - t0
+        if ckpt_lib.parse_checkpoint_name(checkpoint)[1] != POSE_ITERATIONS \
+                or integrity["n_leaves"] != len(trainer.state_tensors()):
+            raise AssertionError(f"checkpoint {checkpoint}: {integrity['n_leaves']} records")
+        timings = {k: [t * 1e3 for t in v] for k, v in trainer.timings.items()}
+        params = (sum(p.numel() for p in trainer.net_G.parameters()),
+                  sum(p.numel() for p in trainer.net_D.parameters()))
+
+        # one fp32 warp-frame G step (TF32 off) through the kernels
+        # against the same step through their plain versions
+        loader, _ = get_train_and_val_dataloader(trainer.cfg, seed=ENTRY_SEED)
+        loader.dataset.set_sequence_length(POSE_SEQ)
+        data = trainer.start_of_iteration(next(iter(loader)), POSE_ITERATIONS)
+        trainer.compute_dtype = torch.float32
+        gen = torch.Generator(device=device).manual_seed(9)
+        data_t = trainer._get_data_t(data, 2, data["label"][:, :2], torch.tanh(
+            torch.randn(data["images"][:, :2].shape, generator=gen, device=device)))
+        data_t["past_stacks"] = {}
+        spade_mod.launches = spade_mod.bwd_launches = 0
+        step = fp32_warp_g_step(trainer, data_t, rs, corr, cn, TOL_V2V_STEP_REL)
+        step["launches"].update(spade_modulation=spade_mod.launches,
+                                spade_modulation_bwd=spade_mod.bwd_launches)
+        step_regions = {"GAN_face", "GAN_hand", "FeatureMatching_face",
+                        "FeatureMatching_hand"}
+        if not step_regions <= set(step["plain"]) or spade_mod.launches \
+                or spade_mod.bwd_launches:
+            raise AssertionError(f"fp32 warp-frame G step: losses {sorted(step['plain'])}, "
+                                 f"modulation launches {step['launches']}")
+        del data, data_t, trainer
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # inference through the entry from a verified load of the checkpoint
+        frames, save_frame = [], Trainer._save_test_frame
+
+        def keep(self, output_dir, key, t, fake):
+            frames.append((key, t, float(fake.float().min()), float(fake.float().max()),
+                           bool(torch.isfinite(fake).all())))
+            return save_frame(self, output_dir, key, t, fake)
+
+        out = tmp / "frames"
+        reset_all_launches(rs, corr, cn, spade_mod)
+        Trainer._save_test_frame = keep
+        try:
+            t0 = time.perf_counter()
+            inference.main(["--config", str(cfg_path), "--checkpoint", checkpoint,
+                            "--output_dir", str(out), "--logdir", str(tmp / "inference"),
+                            "--seed", str(ENTRY_SEED), "--device", device])
+            inference_s = time.perf_counter() - t0
+        finally:
+            Trainer._save_test_frame = save_frame
+        inference_launches = all_launches(rs, corr, cn, spade_mod)
+        written = sorted(str(p.relative_to(out)) for p in out.rglob("*.png"))
+        want_files = [f"seq0000/{t:04d}.png" for t in range(POSE_TEST_FRAMES)]
+        want_inf = dict.fromkeys(inference_launches, 0)
+        want_inf["resample2d"] = max(0, POSE_TEST_FRAMES - 2)
+        if written != want_files or inference_launches != want_inf \
+                or not all(ok and -1 <= lo and hi <= 1 for _, _, lo, hi, ok in frames):
+            raise AssertionError(f"pose inference: {written}, frames {frames}, launches "
+                                 f"{inference_launches} (expected {want_inf})")
+    seq = POSE_SEQ
+    kinds = ["first", "continuation"] + ["warp"] * (seq - 2)
+    by_type = {s: {kind: [ms for i, ms in enumerate(timings[s]) if kinds[i % seq] == kind]
+                   for kind in dict.fromkeys(kinds)} for s in ("dis_step", "gen_step")}
+    warm = timings["iteration"][1:]
+    hand_valid = [sum(v) for v in got_valid]
+    row = {"config": str(POSE_CONFIG.relative_to(REPO)), "override": POSE_C12,
+           "sequences": POSE_SEQUENCES, "frames": POSE_FRAMES, "hw": list(hw),
+           "batch": POSE_BATCH, "sequence_length": seq, "compute_dtype": "bfloat16",
+           "generator_params": params[0], "discriminator_params": params[1],
+           "data_s": data_s, "train_s": train_s, "iterations": POSE_ITERATIONS,
+           "iteration_ms": timings["iteration"], "first_iteration_ms": timings["iteration"][0],
+           "warm_iteration_ms": float(np.median(warm)) if warm else None,
+           "warm_frames_per_s": (POSE_BATCH * seq / (float(np.median(warm)) / 1e3)
+                                 if warm else None),
+           "step_ms_by_frame": {s: {kind: v for kind, v in d.items()}
+                                for s, d in by_type.items()},
+           "warp_frame_dis_step_ms": float(np.median(by_type["dis_step"]["warp"])),
+           "warp_frame_gen_step_ms": float(np.median(by_type["gen_step"]["warp"])),
+           "data_wait_ms": timings["data_wait"], "peak_mem_gib": peak,
+           "launches": launches, "gan_face": region_losses["GAN_face"],
+           "gan_hand": region_losses["GAN_hand"],
+           "hands_valid_a_g_step": hand_valid, "hands_valid_seeded": [
+               sum(v) for v in want_valid], "hands_valid_total": sum(hand_valid),
+           "checkpoint_bytes": sum(f["size"] for f in integrity["files"].values()),
+           "checkpoint_save_s": saves, "checkpoint_files_verify_s": verify_s,
+           "inference_s": inference_s, "inference_frames": len(written),
+           "inference_launches": inference_launches,
+           "phase_s": time.perf_counter() - t_phase,
+           "nvidia_smi": nvidia_smi() if cuda else "not measured"}
+    row.update(fp32_step_kernels=step["kernels"], fp32_step_plain=step["plain"],
+               fp32_worst_rel=step["worst_rel"], fp32_step_launches=step["launches"],
+               fp32_step_teacher=step["teacher"])
+    phase("pose_vid2vid_entry", **row)
+    return row
+
+
 def one_hot_frame(rng):
     idx = rng.randint(0, V2V_LABELS, (1,) + V2V_HW)
     label = np.zeros((1,) + V2V_HW + (V2V_LABELS,), np.float32)
@@ -4821,6 +5287,8 @@ def main():
     p2p = timed(pix2pixHD_entry, rs, spade_mod, corr, cn)
     unpaired = timed(unpaired_entry, rs, spade_mod, corr, cn)
     funit = timed(funit_entry, rs, spade_mod, corr, cn)
+    pose_shapes = timed(check_pose_kernels, rs, corr, cn)
+    pose = timed(pose_vid2vid_entry, rs, spade_mod, corr, cn)
     phase("phase_seconds", **seconds, total=time.perf_counter() - t0)
 
     def p2p_launches(name):
@@ -4846,6 +5314,19 @@ def main():
         out.update({f"{family}_fp32_forward": funit["fp32_forward"][family]["launches"][name]
                     for family in FUNIT_CONFIGS})
         return out
+
+    def pose_launches(name):
+        """vid2vid dancing (phase 17): 2 training iterations, the fp32
+        warp-frame G step, one inference entry."""
+        return {"train": pose["launches"][name],
+                "fp32_g_step": pose["fp32_step_launches"][name],
+                "inference": pose["inference_launches"][name]}
+
+    def pose_shape(name):
+        """The kernel at the dancing path's 512x512 shapes (phase 3e)."""
+        return {key: pose_shapes[name][key] for key in (
+            "shape" if "shape" in pose_shapes[name] else "shapes", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "max_abs_err")}
 
     def per_call_set(table, dtype, path="spade"):
         sel = [r for r in table if r["dtype"].startswith(dtype) and r["path"] == path]
@@ -4873,6 +5354,7 @@ def main():
         "p2p_launches": p2p_launches("spade_modulation"),
         "unpaired_launches": unpaired_launches("spade_modulation"),
         "funit_launches": funit_launches("spade_modulation"),
+        "pose_launches": pose_launches("spade_modulation"),
         # the hyper route's 12 calls of a batch-1 forward at 512x512, fp32
         "fs_forward": per_call_set(rows, "float32", "fs"),
         # the 19 calls of one bs-4 generator forward, fp32, n_pairs 1
@@ -4887,6 +5369,7 @@ def main():
         "p2p_launches": p2p_launches("spade_modulation_bwd"),
         "unpaired_launches": unpaired_launches("spade_modulation_bwd"),
         "funit_launches": funit_launches("spade_modulation_bwd"),
+        "pose_launches": pose_launches("spade_modulation_bwd"),
         "fs_backward": per_call_set(bwd_rows, "bfloat16", "fs"),
         # the 19 calls of one G step's backward, bf16 (the training path's
         # type), n_pairs 1; max_abs_err is the fp32 checks' worst error
@@ -4915,6 +5398,8 @@ def main():
         "p2p_launches": p2p_launches("resample2d"),
         "unpaired_launches": unpaired_launches("resample2d"),
         "funit_launches": funit_launches("resample2d"),
+        "pose_launches": pose_launches("resample2d"),
+        "pose_shape": pose_shape("resample2d"),
         # one warp of the previous (1, 3, 512, 1024) frame, fp32, mixed flow
         **{key: rs_rows[0][key] for key in
            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}, {
@@ -4929,6 +5414,8 @@ def main():
         "p2p_launches": p2p_launches("resample2d_bwd"),
         "unpaired_launches": unpaired_launches("resample2d_bwd"),
         "funit_launches": funit_launches("resample2d_bwd"),
+        "pose_launches": pose_launches("resample2d_bwd"),
+        "pose_shape": pose_shape("resample2d_bwd"),
         # the training warp's backward of (2, 3, 512, 1024) frames, bf16 (the
         # path's type), dflow alone (the path's), mixed flow; max_abs_err is
         # dflow's (0: bit for bit) and the fp32 dx checks' worst over the
@@ -4946,6 +5433,8 @@ def main():
         "p2p_launches": p2p_launches("correlation"),
         "unpaired_launches": unpaired_launches("correlation"),
         "funit_launches": funit_launches("correlation"),
+        "pose_launches": pose_launches("correlation"),
+        "pose_shape": pose_shape("correlation"),
         # the one call of a FlowNet2 forward of one frame pair, fp32
         **{key: corr_rows[0][key] for key in
            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}, {
@@ -4959,6 +5448,8 @@ def main():
         "p2p_launches": p2p_launches("channelnorm"),
         "unpaired_launches": unpaired_launches("channelnorm"),
         "funit_launches": funit_launches("channelnorm"),
+        "pose_launches": pose_launches("channelnorm"),
+        "pose_shape": pose_shape("channelnorm"),
         # the 6 calls (4 of 3 channels, 2 of 2) of a FlowNet2 forward of
         # one frame pair, fp32
         **{key: sum(r[key] * r["calls"] for r in cn_per_pair)
@@ -4976,7 +5467,7 @@ def main():
              "vid2vid_train_entry": v2v_train, "vid2vid_eval_entry": v2v_eval,
              "spade_eval_entry": evaluation, "fs_vid2vid_entry": fs,
              "wc_vid2vid_entry": wc, "pix2pixHD_entry": p2p, "unpaired_entry": unpaired,
-             "funit_entry": funit,
+             "funit_entry": funit, "pose_kernels": pose_shapes, "pose_vid2vid_entry": pose,
              "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)

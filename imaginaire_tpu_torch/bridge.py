@@ -19,8 +19,11 @@ parameter or buffer of the same path:
 
 It raises on a leaf with no counterpart, on a shape mismatch, and on any
 parameter or buffer of the module that no leaf filled. The same mapping
-carries the JAX discriminator's ``params``/``spectral`` trees and the
-VGG19 ``params`` of the perceptual loss (into ``PerceptualLoss.module``).
+carries the JAX discriminator's ``params``/``spectral`` trees (the
+vid2vid D's region Ds ``net_D_face`` / ``net_D_hand`` among them, and
+``mlp_multiclass``'s ``fc_*`` blocks with their BatchNorm statistics)
+and the VGG19 ``params`` of the perceptual loss (into
+``PerceptualLoss.module``).
 
 ``load_jax_state(trainer, state)`` fills a port trainer from a JAX
 trainer's state pytree: ``vars_G`` and ``vars_D`` as above, the averaged

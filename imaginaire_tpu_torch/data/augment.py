@@ -329,7 +329,16 @@ def _spatial(frames):
 
 
 def _apply_keypoints(pts, ops, original_hw):
-    """Move (N, 2[+extra]) xy coordinates through the image ops."""
+    """Move (N, 2[+extra]) xy coordinates through the image ops; the
+    extra columns (OpenPose's confidence) are kept. OpenPose frames are
+    dicts of keypoint groups (``pose``, ``face``, ``hand_l``,
+    ``hand_r``; ``utils/visualization/pose.py:openpose_to_npy``), or,
+    with every person kept, lists of such dicts: each group of each
+    person moves."""
+    if isinstance(pts, dict):
+        return {k: _apply_keypoints(v, ops, original_hw) for k, v in pts.items()}
+    if isinstance(pts, list):
+        return [_apply_keypoints(p, ops, original_hw) for p in pts]
     if pts is None:
         return None
     pts = np.asarray(pts, np.float32).copy()

@@ -25,9 +25,14 @@ Data ops, as in the JAX package: per type, ``pre_aug_ops`` before the
 augmentation and ``post_aug_ops`` after it: the builtins ``decode_json``
 and ``to_numpy``, ``module::function`` (a function of the frame list)
 and ``vis::module::function``, which also receives the augmentation's
-geometry and turns keypoints into label maps. The augmented coordinates
-of each ``keypoint_data_types`` type are kept as ``<type>_xy`` (T, N, 2)
-before the post ops run, and come out in the item. ``full_data_ops``
+geometry and the item's ``rng`` and turns keypoints into label maps
+(the JAX package's pose renderer draws its random stroke drops from the
+global ``random``). A rendered map must have the channels its type
+declares (``num_channels``): the port raises where it does not, and
+guesses no width. The augmented coordinates of each
+``keypoint_data_types`` type are kept as ``<type>_xy`` (T, N, 2) before
+the post ops run, and come out in the item; OpenPose's dict frames have
+no such stash. ``full_data_ops``
 (``module::function``) then see the whole item; they receive the item's
 ``rng`` too. ``decode_pkl`` unpickles each frame, and
 ``convert::module::function`` is a function of the frame list that may
@@ -39,7 +44,6 @@ they resolve to their twins in the port.
 
 from __future__ import annotations
 
-import importlib
 import json
 import os
 import pickle
@@ -55,6 +59,7 @@ from imaginaire_tpu_torch.data.backends import (
     PackedBackend,
     create_folder_metadata,
 )
+from imaginaire_tpu_torch.registry import resolve_function
 
 
 def _parse_ops(spec):
@@ -62,12 +67,6 @@ def _parse_ops(spec):
         return []
     return [item.strip() for item in str(spec).split(",")
             if item.strip() and item.strip() != "None"]
-
-
-def _port_function(module, fn_name):
-    from imaginaire_tpu_torch.registry import port_module_name
-
-    return getattr(importlib.import_module(port_module_name(module)), fn_name)
 
 
 class BaseDataset:
@@ -193,17 +192,17 @@ class BaseDataset:
         kp_copies = {}
         for t in self.keypoint_data_types:
             frames = data.get(t)
-            if frames:
+            if frames and not isinstance(frames[0], (dict, list)):
                 try:
                     kp_copies[t + "_xy"] = np.stack([np.asarray(f, np.float32)
                                                      for f in frames])
                 except ValueError:  # ragged keypoint counts: no stash
                     pass
-        data = self._apply_ops(data, self.post_aug_ops)
+        data = self._apply_ops(data, self.post_aug_ops, rng)
         data.update(kp_copies)
         for spec in self.full_data_ops:
-            data = _port_function(*spec.split("::"))(self.cfgdata, self.is_inference,
-                                                      data, rng=rng)
+            data = resolve_function(*spec.split("::"))(self.cfgdata, self.is_inference,
+                                                       data, rng=rng)
         out = {k: data[k] for k in kp_copies}
         for t in self.data_types:
             if not isinstance(data[t], (list, tuple)):
@@ -215,6 +214,14 @@ class BaseDataset:
             for arr in data[t]:
                 arr = np.asarray(arr)
                 vis_output = arr.ndim == 3 and t in self.keypoint_data_types
+                if vis_output and self.num_channels[t] \
+                        and arr.shape[-1] != self.num_channels[t]:
+                    raise ValueError(
+                        f"{t!r} renders {arr.shape[-1]} channels where "
+                        f"data.input_types declares num_channels "
+                        f"{self.num_channels[t]} (ROADMAP.md §C, C12); for "
+                        "OpenPose's 27 set data.for_pose_dataset.pose_one_hot: "
+                        "True")
                 arr = arr.astype(np.float32)
                 if self.is_mask[t] or (self.num_channels[t] and arr.ndim == 3
                                        and arr.shape[-1] == 1
@@ -236,15 +243,16 @@ class BaseDataset:
         out["is_flipped"] = np.asarray(is_flipped)
         return out
 
-    def _apply_ops(self, data, op_dict):
+    def _apply_ops(self, data, op_dict, rng=None):
         for t, ops in op_dict.items():
             if t in data:
                 for spec in ops:
-                    data[t] = self._resolve_op(spec)(data[t])
+                    data[t] = self._resolve_op(spec, rng)(data[t])
         return data
 
-    def _resolve_op(self, spec):
-        """A data-op spec -> a function of one type's frame list."""
+    def _resolve_op(self, spec, rng=None):
+        """A data-op spec -> a function of one type's frame list; a
+        ``vis::`` op also gets the item's ``rng``."""
         if spec == "decode_json":
             return lambda frames: [json.loads(f) if isinstance(f, (str, bytes)) else f
                                    for f in frames]
@@ -254,12 +262,13 @@ class BaseDataset:
             return lambda frames: [np.asarray(f) for f in frames]
         parts = str(spec).split("::")
         if len(parts) == 2:
-            return _port_function(*parts)
+            return resolve_function(*parts)
         if len(parts) == 3 and parts[0] == "vis":
-            fn = _port_function(*parts[1:])
-            return lambda frames: fn(*self.augmentor.geometry(), self.cfgdata, frames)
+            fn = resolve_function(*parts[1:])
+            return lambda frames: fn(*self.augmentor.geometry(), self.cfgdata, frames,
+                                     rng=rng)
         if len(parts) == 3 and parts[0] == "convert":
-            return _port_function(*parts[1:])
+            return resolve_function(*parts[1:])
         raise NotImplementedError(
             f"data op {spec!r} is not in the port yet (ROADMAP.md); it has "
             "decode_json, decode_pkl, to_numpy, module::function, "

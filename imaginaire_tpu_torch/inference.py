@@ -10,7 +10,7 @@ newest verifiable checkpoint beside it loads instead), and generates
 through ``trainer.test``: one PNG a test item for the image families,
 and for vid2vid every frame of every sequence of the test split, rolled
 out frame by frame (``<output_dir>/seq<idx>/<t>.png``). Routing through
-the serving engine is not in the port yet (ROADMAP.md A.3).
+the serving engine is not in the port yet (ROADMAP.md A.5).
 """
 
 from __future__ import annotations

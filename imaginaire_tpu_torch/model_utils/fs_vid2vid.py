@@ -161,3 +161,165 @@ def crop_face_from_data(cfg, is_inference, data, rng=None):
         if isinstance(frames, list) and frames and np.asarray(frames[0]).ndim >= 2:
             data[key] = list(crop_and_resize([frames], crop_coords, (h, w))[0])
     return data
+
+
+# ----------------------------------------------------------------------
+# Region crops of G's output for the additional (face, hand)
+# discriminators. As in the JAX package, the shapes do not depend on the
+# data: the boxes are reductions over the pose label on the device, the
+# face box of any size is resampled to one fixed patch, and each hand is
+# a fixed window; a sample whose region is absent gets a default box and
+# a validity flag, so its losses are weighted out rather than skipped.
+# Nothing here syncs with the host.
+
+
+def _masked_minmax(mask):
+    """(B, H, W) bool -> per-sample ys, ye, xs, xe, count (int64); an
+    empty mask gives ys = xs = 2**30 and ye = xe = -1."""
+    _, h, w = mask.shape
+    yy = torch.arange(h, device=mask.device).view(1, h, 1)
+    xx = torch.arange(w, device=mask.device).view(1, 1, w)
+    big = 1 << 30
+    ys = torch.where(mask, yy, big).amin(dim=(1, 2))
+    ye = torch.where(mask, yy, -1).amax(dim=(1, 2))
+    xs = torch.where(mask, xx, big).amin(dim=(1, 2))
+    xe = torch.where(mask, xx, -1).amax(dim=(1, 2))
+    return ys, ye, xs, xe, mask.sum(dim=(1, 2))
+
+
+def _latest_frame(pose):
+    return pose[:, -1] if pose.dim() == 5 else pose
+
+
+def _use_openpose(data_cfg):
+    from imaginaire_tpu_torch.config import cfg_get
+
+    return "pose_maps-densepose" not in list(cfg_get(data_cfg, "input_labels", None) or [])
+
+
+def _clip(x, lo, hi):
+    """``jnp.clip``: the upper bound wins where the bounds cross."""
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+def get_face_bbox_for_output(data_cfg, pose, crop_smaller=0):
+    """Per-sample square face box [ys, ye, xs, xe] (B, 4) int64 from the
+    pose label (B, C, H, W) or its last frame: OpenPose's one-hot face
+    channel (the last) above 0.1, or DensePose's face parts (channel 2
+    above 0.9). Its side is 2.5x the face's width (OpenPose; 1.25x the
+    height for DensePose) within [32, min(H, W)], centred 2/5 down the
+    face; without a face a box of side max(H // 32 * 8, 32) at (H / 4,
+    W / 2). The box is shifted into the frame."""
+    pose = _latest_frame(pose)
+    _, _, h, w = pose.shape
+    openpose = _use_openpose(data_cfg)
+    mask = pose[:, -1] > 0.1 if openpose else pose[:, 2] > 0.9
+    ys0, ye0, xs0, xe0, count = _masked_minmax(mask)
+    xc = (xs0 + xe0) // 2
+    if openpose:
+        yc = (ys0 * 3 + ye0 * 2) // 5
+        ylen = (xe0 - xs0) * 5 // 2
+    else:
+        yc = (ys0 + ye0) // 2
+        ylen = (ye0 - ys0) * 5 // 4
+    ylen = ylen.clamp(32, min(w, h))
+    found = count > 0
+    yc = torch.where(found, yc, h // 4)
+    xc = torch.where(found, xc, w // 2)
+    ylen = torch.where(found, ylen, max(h // 32 * 8, 32))
+    half = ylen // 2
+    yc = _clip(yc, half, h - 1 - half)
+    xc = _clip(xc, half, w - 1 - half)
+    return torch.stack([yc - half + crop_smaller, yc + half - crop_smaller,
+                        xc - half + crop_smaller, xc + half - crop_smaller], dim=-1)
+
+
+def _linear_resample_weights(in_size, out_size, scale, translation):
+    """(B, in_size, out_size) weights of ``jax.image.scale_and_translate``
+    along one axis (``method="linear"``, ``antialias=True``), per-sample
+    ``scale`` and ``translation`` (B,) fp32: output pixel o samples input
+    position (o + 0.5 - translation) / scale - 0.5 with a triangle kernel
+    widened by 1 / scale when it shrinks; the taps' weights are
+    normalized over the in-bounds taps, and an output that samples
+    outside the input gets none."""
+    dev = scale.device
+    inv_scale = 1.0 / scale
+    kernel_scale = torch.clamp_min(inv_scale, 1.0)
+    sample_f = ((torch.arange(out_size, dtype=torch.float32, device=dev) + 0.5)
+                * inv_scale[:, None] - (translation * inv_scale)[:, None] - 0.5)
+    x = (sample_f[:, None, :] - torch.arange(in_size, dtype=torch.float32,
+                                             device=dev)[None, :, None]).abs()
+    weights = torch.clamp_min(1.0 - (x / kernel_scale[:, None, None]).abs(), 0.0)
+    total = weights.sum(dim=1, keepdim=True)
+    weights = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                          weights / torch.where(total != 0, total, 1.0),
+                          torch.zeros_like(weights))
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return torch.where(inside[:, None, :], weights, torch.zeros_like(weights))
+
+
+def crop_face_from_output(data_cfg, image, input_label, crop_smaller=0):
+    """The face box of each sample of ``image`` (B, C, H, W; its last 3
+    channels, or a list of such images) resampled to a fixed
+    (max(H // 32 * 8, 8))² patch as the JAX package's
+    ``jax.image.scale_and_translate(..., method="linear")`` does: it
+    upsamples a small face and antialiases a large one. The per-sample
+    (H, S) and (W, S) weight matrices (cast to the image's type, as
+    there) are applied by two batched matrix products, through which
+    G's gradient flows."""
+    if isinstance(image, (list, tuple)):
+        return [crop_face_from_output(data_cfg, im, input_label, crop_smaller)
+                for im in image]
+    boxes = get_face_bbox_for_output(data_cfg, input_label, crop_smaller)
+    _, _, h, w = image.shape
+    size = max(h // 32 * 8, 8)
+    ys, ye, xs, xe = boxes.unbind(-1)
+    sy = size / torch.clamp_min(ye - ys, 1).float()
+    sx = size / torch.clamp_min(xe - xs, 1).float()
+    wy = _linear_resample_weights(h, size, sy, -ys.float() * sy).to(image.dtype)
+    wx = _linear_resample_weights(w, size, sx, -xs.float() * sx).to(image.dtype)
+    rows = torch.matmul(wy.transpose(1, 2).unsqueeze(1), image[:, -3:])
+    return torch.matmul(rows, wx.unsqueeze(1))
+
+
+def get_hand_bbox_for_output(data_cfg, pose):
+    """Centres (B, 2) y, (B, 2) x and validity (B, 2) bool of the two
+    hands' fixed windows, [left, right]: OpenPose's one-hot hand channels
+    (-3 left, -2 right) above 0.1, the middle of each hand's extent; a
+    missing hand is centred in the frame and invalid. Centres are
+    clipped so that the window (max(H // 64 * 8, 8))² lies in the frame."""
+    pose = _latest_frame(pose)
+    _, _, h, w = pose.shape
+    half = max(h // 64 * 8, 8) // 2
+    ycs, xcs, valids = [], [], []
+    for idx in (-3, -2):
+        ys0, ye0, xs0, xe0, count = _masked_minmax(pose[:, idx] > 0.1)
+        found = count > 0
+        yc = torch.where(found, (ys0 + ye0) // 2, h // 2)
+        xc = torch.where(found, (xs0 + xe0) // 2, w // 2)
+        ycs.append(yc.clamp(half, h - 1 - half))
+        xcs.append(xc.clamp(half, w - 1 - half))
+        valids.append(found)
+    return torch.stack(ycs, -1), torch.stack(xcs, -1), torch.stack(valids, -1)
+
+
+def crop_hand_from_output(data_cfg, image, input_label):
+    """Both hands' windows of ``image`` (B, C, H, W; its last 3
+    channels, or a list of such images): (crops (2B, 3, S, S), the left
+    hands then the right, and their validity (2B,) float). The JAX
+    package's ``lax.dynamic_slice`` windows, gathered on the device."""
+    if isinstance(image, (list, tuple)):
+        return [crop_hand_from_output(data_cfg, im, input_label) for im in image]
+    ycs, xcs, valid = get_hand_bbox_for_output(data_cfg, input_label)
+    b, _, h, w = image.shape
+    size = max(h // 64 * 8, 8)
+    offsets = torch.arange(size, device=image.device)
+    batch = torch.arange(b, device=image.device).view(b, 1, 1)
+    crops = []
+    for i in range(2):
+        top = (ycs[:, i] - size // 2).clamp(0, h - size)
+        left = (xcs[:, i] - size // 2).clamp(0, w - size)
+        rows = (top[:, None] + offsets).view(b, size, 1)
+        cols = (left[:, None] + offsets).view(b, 1, size)
+        crops.append(image[:, -3:].permute(0, 2, 3, 1)[batch, rows, cols].permute(0, 3, 1, 2))
+    return torch.cat(crops, dim=0), torch.cat([valid[:, 0], valid[:, 1]]).float()

@@ -10,8 +10,15 @@ step's gradient reaches it. A generator's raw output
 (``fake_raw_images``) goes through ``net_D`` too, masked by the
 foreground. With few-shot data (fs-vid2vid) the image discriminator's
 condition also holds the reference label and image the generator picked
-(``ref_idx``). ``additional_discriminators`` (pose crops) raise. NCHW;
-frame stacks are (B, T, C, H, W), reference stacks (B, K, C, H, W).
+(``ref_idx``). ``additional_discriminators`` (pose data: ``net_D_face``,
+``net_D_hand``, sorted by name) each judge a region of the real and the
+fake frame, cut by the config's ``crop_func`` (``module::function``,
+resolved to the port's twin: ``model_utils/fs_vid2vid.py``) from the
+current frame's pose label; a crop that comes with a validity mask (the
+hands) passes it on as ``valid``. A few-shot D's region crops would also
+take the reference frame's crop, which the port refuses (ROADMAP.md).
+NCHW; frame stacks are (B, T, C, H, W), reference stacks (B, K, C, H,
+W).
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from imaginaire_tpu_torch.model_utils.fs_vid2vid import fold_time, get_fg_mask, 
 from imaginaire_tpu_torch.models.discriminators.multires_patch import (
     MultiResPatchDiscriminator,
 )
+from imaginaire_tpu_torch.registry import resolve_function
 from imaginaire_tpu_torch.utils.data import (
     get_paired_input_image_channel_number,
     get_paired_input_label_channel_number,
@@ -49,11 +57,18 @@ class Discriminator(nn.Module):
         super().__init__()
         dis_cfg = as_attrdict(dis_cfg)
         data_cfg = as_attrdict(data_cfg)
+        self.data_cfg = data_cfg
         self.use_few_shot = "few_shot" in str(cfg_get(data_cfg, "type", ""))
-        if cfg_get(dis_cfg, "additional_discriminators", None):
+        add_cfg = as_attrdict(cfg_get(dis_cfg, "additional_discriminators", None) or {})
+        if add_cfg and self.use_few_shot:
             raise NotImplementedError(
-                "dis.additional_discriminators (pose-region crops) are not "
-                "in the port yet (ROADMAP.md)")
+                "dis.additional_discriminators of a few-shot D (the reference "
+                "frame's region crop in the condition) are not in the port yet "
+                "(ROADMAP.md)")
+        self.add_dis_names = sorted(add_cfg.keys())
+        self.add_crop_funcs = [
+            resolve_function(*str(cfg_get(add_cfg[n], "crop_func", "")).split("::"))
+            for n in self.add_dis_names]
         self.num_frames_D = cfg_get(data_cfg, "num_frames_D", 3)
         temporal_cfg = cfg_get(dis_cfg, "temporal", None)
         self.num_scales = (cfg_get(temporal_cfg, "num_scales", 0)
@@ -66,6 +81,8 @@ class Discriminator(nn.Module):
         for s in range(self.num_scales):
             self.add_module(f"net_DT{s}", _make_patch_dis(
                 temporal_cfg, self.num_frames_D * num_img))
+        for name in self.add_dis_names:  # region crops: the frame's last 3 channels
+            self.add_module(f"net_D_{name}", _make_patch_dis(add_cfg[name], 3))
 
     @staticmethod
     def _discriminate_image(net_D, real_A, real_B, fake_B):
@@ -82,8 +99,9 @@ class Discriminator(nn.Module):
     def forward(self, data, net_G_output, past_stacks=None):
         """past_stacks: a list a scale of (real, fake) stacks of past
         frames (B, tD - 1, C, H, W), or None for a scale not active yet.
-        Returns {'indv', ['raw'], ['temporal_{s}']}: each holds
-        pred_real / pred_fake outputs and features a pyramid scale."""
+        Returns {'indv', [each region's name], ['raw'], ['temporal_{s}']}:
+        each holds pred_real / pred_fake outputs and features a pyramid
+        scale, a region's also ``valid`` where its crop gives one."""
         label, real_image = data["label"], data["image"]
         if label is not None and label.dim() == 5:
             label = label[:, -1]
@@ -94,6 +112,17 @@ class Discriminator(nn.Module):
         fake_image = net_G_output["fake_images"]
         output = {"indv": self._discriminate_image(self.net_D, label,
                                                    real_image, fake_image)}
+        pose_label = data["label"]
+        for name, crop_fn in zip(self.add_dis_names, self.add_crop_funcs):
+            real_crop = crop_fn(self.data_cfg, real_image, pose_label)
+            fake_crop = crop_fn(self.data_cfg, fake_image, pose_label)
+            valid = None
+            if isinstance(real_crop, tuple):
+                (real_crop, valid), (fake_crop, _) = real_crop, fake_crop
+            output[name] = self._discriminate_image(
+                getattr(self, f"net_D_{name}"), None, real_crop, fake_crop)
+            if valid is not None:
+                output[name]["valid"] = valid
         if net_G_output.get("fake_raw_images") is not None:
             fg_mask = get_fg_mask(data["label"], self.has_fg)
             output["raw"] = self._discriminate_image(

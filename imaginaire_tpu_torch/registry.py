@@ -56,3 +56,9 @@ def resolve(type_string, attr):
             f"module {module_name!r} (from config type {type_string!r}) "
             f"has no {attr!r}")
     return getattr(module, attr)
+
+
+def resolve_function(module, fn_name):
+    """A ``module::function`` spec's parts (a data op's, a region crop's),
+    the module named in either package -> the port's function."""
+    return getattr(importlib.import_module(port_module_name(module)), fn_name)

@@ -14,8 +14,11 @@ EMA after every G step. The losses of the frames are averaged per key.
 ``dis_update`` is a no-op: the D steps run inside the rollout.
 
 The losses: the GAN loss (the config's mode) and feature matching of the
-image discriminator and of each temporal scale, VGG19 perceptual,
-optional L1, and the flow loss: with the FlowNet2 teacher
+image discriminator, of each temporal scale and of each region
+discriminator of pose data (``GAN_<name>`` at its ``loss_weight``,
+``FeatureMatching_<name>``; a sample whose region is absent is weighted
+out by the crop's validity mask), VGG19 perceptual, optional L1, and the
+flow loss: with the FlowNet2 teacher
 (``flow_network``), ``FlowLoss`` on the teacher's flow computed in the
 G step (or on ``flow_gt`` / ``conf_gt``
 when the teacher's cache attached them to the batch), else the
@@ -149,6 +152,11 @@ class Trainer(BaseTrainer):
         for s in range(self.num_temporal_scales):
             self.weights[f"GAN_T{s}"] = cfg_get(lw, "temporal_gan", 0)
             self.weights[f"FeatureMatching_T{s}"] = lw.feature_matching
+        add_cfg = cfg_get(cfg.dis, "additional_discriminators", None) or {}
+        self.add_dis_names = sorted(add_cfg.keys())
+        for name in self.add_dis_names:
+            self.weights[f"GAN_{name}"] = cfg_get(add_cfg[name], "loss_weight", 1.0)
+            self.weights[f"FeatureMatching_{name}"] = lw.feature_matching
 
     def init_loss_params(self, generator):
         if self.perceptual is not None:
@@ -253,16 +261,33 @@ class Trainer(BaseTrainer):
 
     # ------------------------------------------------------------ forwards
 
-    def _gan_fm_losses(self, d_out_part, dis_update):
+    def _gan_fm_losses(self, d_out_part, dis_update, sample_weight=None):
         """(GAN, feature matching) of one discriminator's outputs; the D
-        step's GAN is the mean of its fake and real terms."""
+        step's GAN is the mean of its fake and real terms. ``sample_weight``
+        (B,) weights each sample's means (a region D's validity)."""
         fake, real = d_out_part["pred_fake"], d_out_part["pred_real"]
         if dis_update:
-            gan = 0.5 * (gan_loss(fake["outputs"], False, self.gan_mode, True)
-                         + gan_loss(real["outputs"], True, self.gan_mode, True))
+            gan = 0.5 * (gan_loss(fake["outputs"], False, self.gan_mode, True,
+                                  sample_weight=sample_weight)
+                         + gan_loss(real["outputs"], True, self.gan_mode, True,
+                                    sample_weight=sample_weight))
             return gan, None
-        gan = gan_loss(fake["outputs"], True, self.gan_mode, False)
-        return gan, feature_matching_loss(fake["features"], real["features"])
+        gan = gan_loss(fake["outputs"], True, self.gan_mode, False,
+                       sample_weight=sample_weight)
+        return gan, feature_matching_loss(fake["features"], real["features"],
+                                          sample_weight=sample_weight)
+
+    def _region_d_losses(self, d_out, losses, dis_update):
+        """``GAN_<name>`` (and in the G step ``FeatureMatching_<name>``) of
+        each region discriminator, weighted by its crop's validity."""
+        for name in self.add_dis_names:
+            if name in d_out:
+                gan, fm = self._gan_fm_losses(d_out[name], dis_update,
+                                              sample_weight=d_out[name].get("valid"))
+                losses[f"GAN_{name}"] = gan
+                if not dis_update:
+                    losses[f"FeatureMatching_{name}"] = fm
+        return losses
 
     @staticmethod
     def _split_data_t(data):
@@ -315,7 +340,7 @@ class Trainer(BaseTrainer):
             if f"temporal_{s}" in d_out:
                 losses[f"GAN_T{s}"], losses[f"FeatureMatching_T{s}"] = \
                     self._gan_fm_losses(d_out[f"temporal_{s}"], dis_update=False)
-        return losses, out
+        return self._region_d_losses(d_out, losses, dis_update=False), out
 
     def dis_forward(self, data):
         """Losses of one frame's D step (G's output without gradient)."""
@@ -335,7 +360,7 @@ class Trainer(BaseTrainer):
             if f"temporal_{s}" in d_out:
                 losses[f"GAN_T{s}"], _ = self._gan_fm_losses(
                     d_out[f"temporal_{s}"], dis_update=True)
-        return losses
+        return self._region_d_losses(d_out, losses, dis_update=True)
 
     def _scratch_state_nets(self, net):
         """The JAX trainer applies G with its state mutable in the D step

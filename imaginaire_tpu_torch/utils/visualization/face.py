@@ -105,10 +105,10 @@ def draw_edge(im, x, y, bw=1, color=(255, 255, 255), draw_end_points=False):
 
 
 def connect_face_keypoints(resize_h, resize_w, crop_h, crop_w, original_h,
-                           original_w, is_flipped, cfgdata, keypoints):
+                           original_w, is_flipped, cfgdata, keypoints, rng=None):
     """(T, 68, 2) landmark frames -> T (resize_h, resize_w, 1) float32
     edge maps in [0, 1]. ``for_face_dataset.add_upper_face`` mirrors the
-    jaw contour above the brow line first."""
+    jaw contour above the brow line first. Draws nothing from ``rng``."""
     face_cfg = cfg_get(cfgdata, "for_face_dataset", None)
     add_upper_face = bool(cfg_get(face_cfg, "add_upper_face", False)) \
         if face_cfg is not None else False

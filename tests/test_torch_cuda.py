@@ -33,6 +33,9 @@ CPU run (1e-3 of the features' magnitude), and the averaged copy's
 BatchNorm re-estimation through the modulation kernel against the plain
 composition (1e-4). fs-vid2vid: the hyper-SPADE generator through the
 modulation kernel's re-reading path against the plain composition (1e-4).
+vid2vid dancing: the face and hand crops at 512x512 and the region Ds
+on the card against the CPU (crops fp32 1e-5, bf16 one ulp of their
+magnitude; the D's outputs 1e-4 in relative L2).
 """
 
 import re
@@ -868,3 +871,60 @@ def test_funit_generators_on_the_card_match_the_cpu(cuda_device):
             assert g.shape == (2, 3, 64, 64) and torch.isfinite(g).all()
             assert float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w)) \
                 <= 1e-4, (name, k)
+
+
+@pytest.mark.cuda
+def test_pose_region_crops_and_discriminator_on_the_card_match_the_cpu(cuda_device):
+    """The dancing path's face and hand crops at 512x512 (a small face
+    the crop upsamples, a large one it antialiases, none, a hand missing)
+    and the unit pose config's discriminator with its region Ds on
+    64x64 one-hot labels, on the card against the CPU: the boxes and the
+    hands' validity exactly, the crops fp32 within 1e-5 of their
+    magnitude and bf16 within one bf16 ulp of it, the D's outputs within
+    1e-4 in relative L2; no kernel launches."""
+    from imaginaire_tpu_torch.config import Config
+    from imaginaire_tpu_torch.model_utils import fs_vid2vid
+    from imaginaire_tpu_torch.models.discriminators.fs_vid2vid import Discriminator
+
+    cfg = Config(str(UNIT_CONFIG.parent / "vid2vid_pose.yaml"))
+    pose = torch.zeros(3, 27, 512, 512)
+    pose[0, -1, 200:204, 250:256] = 1
+    pose[1, -1, 20:500, 30:480] = 1
+    pose[0, -3, 300:330, 100:120] = pose[1, -2, 400:440, 300:330] = 1
+    gen = torch.Generator().manual_seed(11)
+    img = torch.randn(3, 3, 512, 512, generator=gen)
+    launches = (spade_mod.launches, rs.launches, corr.launches, cn.launches)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = img.to(dtype)
+        want = fs_vid2vid.crop_face_from_output(cfg.data, x, pose).float()
+        got = fs_vid2vid.crop_face_from_output(cfg.data, x.to(cuda_device),
+                                               pose.to(cuda_device)).float().cpu()
+        scale = want.abs().max()
+        assert got.shape == (3, 3, 128, 128)
+        if dtype == torch.float32:
+            assert float((got - want).abs().max()) <= 1e-5 * float(scale)
+        else:
+            assert bf16_ulps(got, want, scale=scale.expand_as(want)) <= 1.0
+        (want_h, want_v) = fs_vid2vid.crop_hand_from_output(cfg.data, x, pose)
+        got_h, got_v = fs_vid2vid.crop_hand_from_output(cfg.data, x.to(cuda_device),
+                                                         pose.to(cuda_device))
+        assert torch.equal(got_h.cpu(), want_h) and torch.equal(got_v.cpu(), want_v)
+        assert want_v.tolist() == [1, 0, 0, 0, 1, 0]
+    net = Discriminator(cfg.dis, cfg.data).eval()
+    init_weights(net, torch.Generator().manual_seed(12), "kaiming", 1.0)
+    dev_net = Discriminator(cfg.dis, cfg.data).to(cuda_device).eval()
+    dev_net.load_state_dict(net.state_dict())
+    label = torch.nn.functional.interpolate(pose[:2], size=(64, 64), mode="nearest")
+    real, fake = (torch.tanh(torch.randn(2, 3, 64, 64, generator=gen)) for _ in range(2))
+    with torch.no_grad():
+        want = net({"label": label, "image": real}, {"fake_images": fake})
+        got = dev_net({"label": label.to(cuda_device), "image": real.to(cuda_device)},
+                      {"fake_images": fake.to(cuda_device)})
+    assert set(got) == set(want) == {"indv", "face", "hand"}
+    for name in want:
+        for side in ("pred_real", "pred_fake"):
+            for g, w in zip(got[name][side]["outputs"], want[name][side]["outputs"]):
+                g = g.float().cpu()
+                assert float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w)) \
+                    <= 1e-4, (name, side)
+    assert (spade_mod.launches, rs.launches, corr.launches, cn.launches) == launches

@@ -156,8 +156,7 @@ def test_config_types_resolve_to_the_port():
     assert registry.resolve("imaginaire_tpu.trainers.vid2vid", "Trainer") \
         .__module__ == "imaginaire_tpu_torch.trainers.vid2vid"
     with pytest.raises(ModuleNotFoundError, match="ROADMAP"):
-        registry.resolve("imaginaire_tpu.models.discriminators.mlp_multiclass",
-                         "Discriminator")
+        registry.resolve("imaginaire_tpu.data.paired_few_shot_videos_native", "Dataset")
 
 
 def test_engine_refuses_pix2pixHD():

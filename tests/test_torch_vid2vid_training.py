@@ -625,6 +625,17 @@ def test_unported_branches_raise_naming_the_roadmap(what, tmp_path):
         with pytest.raises(NotImplementedError, match="finetune.*ROADMAP"):
             fs.test([], str(tmp_path / "out"), {"finetune": True})
         return
+    if what == "additional_discriminators":
+        # the region Ds are ported (tests/test_torch_pose.py); a few-shot
+        # D's reference-frame crop beside them is not
+        from imaginaire_tpu_torch.models.discriminators.fs_vid2vid import Discriminator
+
+        fs = Config("configs/unit_test/fs_vid2vid.yaml")
+        fs.dis.additional_discriminators = Config(
+            "configs/unit_test/vid2vid_pose.yaml").dis.additional_discriminators
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Discriminator(fs.dis, fs.data)
+        return
     if what == "densepose":
         trainer = Trainer(Config(CFG, overrides=dict(CUT, data=dict(
             CUT["data"], for_pose_dataset=dict(), input_labels=["pose_maps-densepose"]))),
@@ -634,8 +645,6 @@ def test_unported_branches_raise_naming_the_roadmap(what, tmp_path):
         return
     overrides = {
         "rollout_scan": dict(CUT, trainer=dict(CUT["trainer"], rollout_scan=True)),
-        "additional_discriminators": dict(CUT, dis=dict(
-            CUT["dis"], additional_discriminators=dict(face=dict(crop_func="a::b")))),
     }[what]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(Config(CFG, overrides=overrides), device="cpu", train=True)
