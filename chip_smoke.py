@@ -305,7 +305,34 @@ Phases, one line each; any failure exits non-zero:
    type, the data wait, peak memory, the region losses, the hands
    counted, the checkpoint's bytes and save seconds, the inference
    seconds and the phase's seconds are printed;
-18. a ``phase_seconds`` line, a ``kernels`` JSON line, the nvidia-smi
+18. fs-vid2vid YouTubeDancing (``pose_fs_vid2vid_entry``, after phase
+   17): a seeded folder dataset of 12 sequences of 5 frames at the
+   config's 540x960 (RGB PNG, DensePose IUV PNG with the part index in
+   channel 2, face parts included, OpenPose JSON of a walking dancer and
+   a bystander, DensePose instance maps with a different id each);
+   configs/projects/fs_vid2vid/YouTubeDancing/bf16.yaml with the forced
+   overrides (``ext: png``, the two ``allow_random_init``, the finetune's
+   ``finetune_iter``). ``imaginaire_tpu_torch.train.main`` trains 2
+   iterations (batch 6, 512x256 person crops, sequence length 4, bf16,
+   6 label channels, the few-shot face D; resample2d 14, its backward 7
+   an iteration, the rest 0); the losses, ``GAN_face`` among them, are
+   finite, the weight generator and the flow network move, the
+   checkpoint verifies; one fp32 warp-frame G step (TF32 off) is held
+   within 1e-3 of the same step through the plain versions
+   (``fp32_warp_g_step``, two warps); ``imaginaire_tpu_torch.inference.main``
+   finetunes (only the parameters under the finetune prefixes move) and
+   writes the driving sequence's 5 frames, every one cropped with its
+   first frame's box, each PNG equal to G's clipped frame; resample2d
+   and its backward (dflow) are held and timed at the path's (6, 3, 512,
+   256) warp; the hyper route (``configs/unit_test/fs_vid2vid_pose.yaml``)
+   holds one fp32 G step and one fp32 forward through the kernels (the
+   modulation 8 a forward, 8 backwards a G step) against their plain
+   versions. The parameters, the first and warm iteration ms, frames/s,
+   D and G step ms of a warp frame, the person crop's host ms an item,
+   the data wait, peak memory, the checkpoint's bytes and save seconds,
+   the finetune's and the inference's seconds and the phase's seconds
+   are printed;
+19. a ``phase_seconds`` line, a ``kernels`` JSON line, the nvidia-smi
    line, and the final JSON line.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -2212,7 +2239,8 @@ def reset_video_launches(rs, corr, cn):
     rs.launches = rs.bwd_launches = corr.launches = cn.launches = 0
 
 
-def fp32_warp_g_step(trainer, data_t, rs, corr, cn, tol):
+def fp32_warp_g_step(trainer, data_t, rs, corr, cn, tol, warps=1,
+                     flow_losses=("Flow_L1", "Flow_Warp", "Flow_Mask")):
     """One fp32 warp-frame G step (TF32 off; the caller sets fp32) through
     the kernels against the same step through their plain versions, from
     one saved state. The teacher's (flow, conf) for the step's frame pair
@@ -2224,8 +2252,10 @@ def fp32_warp_g_step(trainer, data_t, rs, corr, cn, tol):
     loss weighted by conf jumps with them; both steps therefore read the
     kernels' (flow, conf) as the flow cache hands it to a step, and each
     of their losses and the grad norm is a continuous function of the
-    kernels' outputs, held within ``tol`` relative. The launches of the
-    kernels' step are the teacher's plus the step's own."""
+    kernels' outputs, held within ``tol`` relative. The step warps
+    ``warps`` times forward and backward (vid2vid's previous frame; fs-
+    vid2vid's reference and previous frame) and has ``flow_losses``. The
+    launches of the kernels' step are the teacher's plus the step's own."""
     from imaginaire_tpu_torch.flow.flow_net import CONF_THRESHOLD
 
     torch.backends.cudnn.allow_tf32 = False
@@ -2280,10 +2310,10 @@ def fp32_warp_g_step(trainer, data_t, rs, corr, cn, tol):
     rel = {k: abs(kernel_step[k] - plain_step[k]) / max(abs(plain_step[k]), 1e-30)
            for k in plain_step}
     worst = max(rel, key=rel.get)
-    if step_launches != {"resample2d": 1, "resample2d_bwd": 1, "correlation": 0,
+    if step_launches != {"resample2d": warps, "resample2d_bwd": warps, "correlation": 0,
                          "channelnorm": 0} \
             or any(plain_launches.values()) or rel[worst] > tol \
-            or not {"Flow_L1", "Flow_Warp", "Flow_Mask"} <= set(plain_step):
+            or not set(flow_losses) <= set(plain_step):
         raise AssertionError(
             f"fp32 warp-frame G step through the kernels vs their plain versions "
             f"(the kernels' teacher output in both): {worst} differs by {rel[worst]} "
@@ -4359,6 +4389,55 @@ POSE_OVERRIDES = {"logging_iter": 1, "snapshot_save_iter": 1000,
                   "trainer": {"speed_benchmark": True,
                               "perceptual_loss": {"allow_random_init": True}},
                   "flow_network": {"allow_random_init": True}}
+# fs-vid2vid YouTubeDancing (phase 18):
+# configs/projects/fs_vid2vid/YouTubeDancing/bf16.yaml at its widths
+# (512x256, batch 6, sequence length 4, bf16, DensePose + OpenPose labels
+# of 6 channels, the few-shot face D) with the forced overrides: PNG
+# frames (the card's machine has no JPEG codec), no VGG19 or FlowNet2
+# weights, and the finetune cut to YTD_FINETUNE_ITER iterations. A seeded
+# folder dataset at the config's 540-pixel side: 12 sequences of 5 frames
+# (two batches of 6 an epoch: the 2 iterations end inside epoch 0, so the
+# run saves once), a dancer and a bystander a frame
+YTD_CONFIG = REPO / "configs/projects/fs_vid2vid/YouTubeDancing/bf16.yaml"
+YTD_SEQUENCES, YTD_FRAMES, YTD_RAW_HW = 12, 5, (540, 960)
+YTD_ITERATIONS, YTD_SEQ, YTD_BATCH = 2, 4, 6
+YTD_HW = (512, 256)
+YTD_WALK = 20.0  # pixels the dancer moves a frame
+YTD_DANCER_ID, YTD_BYSTANDER_ID = 3, 7
+YTD_FINETUNE_ITER = 3
+YTD_FORCED = {"trainer": {"perceptual_loss": {"allow_random_init": True}},
+              "flow_network": {"allow_random_init": True},
+              "inference_args": {"finetune_iter": YTD_FINETUNE_ITER}}
+YTD_CADENCES = {"logging_iter": 1, "snapshot_save_iter": 1000, "snapshot_save_epoch": 1000,
+                "image_save_iter": 1000, "trainer": {"speed_benchmark": True}}
+# launches, predicted from the code (the FaceForensics path's): a
+# training frame warps the reference in its D step's and its G step's
+# forward from the first frame on, and the previous output from the
+# second; its G backward runs each warp's backward (dflow alone: the
+# reference is data, the previous output detached): 14 / 7 an iteration
+# of 4 frames. No teacher runs in the fs G step and the committed
+# config's SPADE base is BatchNorm: correlation, channelnorm and the
+# modulation 0. The finetune's iterations are one-frame (the reference
+# warp: 2 forward, 1 backward each); the inference then warps 1 + 2 a
+# later frame of the driving sequence
+YTD_ENTRY_LAUNCHES = {"resample2d": YTD_ITERATIONS * 2 * (2 * YTD_SEQ - 1),
+                      "resample2d_bwd": YTD_ITERATIONS * (2 * YTD_SEQ - 1),
+                      "correlation": 0, "channelnorm": 0,
+                      "spade_modulation": 0, "spade_modulation_bwd": 0}
+YTD_INFERENCE_LAUNCHES = {"resample2d": 2 * YTD_FINETUNE_ITER + 1 + 2 * (YTD_FRAMES - 1),
+                          "resample2d_bwd": YTD_FINETUNE_ITER, "correlation": 0,
+                          "channelnorm": 0, "spade_modulation": 0, "spade_modulation_bwd": 0}
+# the hyper route (configs/unit_test/fs_vid2vid_pose.yaml: 3 downsamples,
+# 4 HyperRes2dBlocks of 2 hyper norms, each fusing its first modulation
+# pair with the instance norm): 8 modulations a forward, 8 backwards a G
+# step, 2 warps and 2 dflows a warp frame's G step
+YTD_HYPER_CONFIG = REPO / "configs/unit_test/fs_vid2vid_pose.yaml"
+YTD_HYPER_HW, YTD_HYPER_LABELS = (64, 64), 27
+YTD_HYPER_LAUNCHES = {
+    "g_step": {"resample2d": 2, "resample2d_bwd": 2, "correlation": 0, "channelnorm": 0,
+               "spade_modulation": 8, "spade_modulation_bwd": 8},
+    "forward": {"resample2d": 2, "resample2d_bwd": 0, "correlation": 0, "channelnorm": 0,
+                "spade_modulation": 8, "spade_modulation_bwd": 0}}
 # BODY_25 keypoints of a standing dancer: (x, y) in units of its height
 # from the top of its head, x to the image's right
 BODY_25 = np.array([
@@ -4439,20 +4518,13 @@ def write_pose_dataset(root, sequences=POSE_SEQUENCES, frames=POSE_FRAMES, hw=PO
                                 ["images", "poses-openpose"])
 
 
-def check_pose_kernels(rs, corr, cn):
-    """Phase 3e: the four kernels of the dancing path at its 512x512
-    shapes, against their plain versions, fp32 and bf16: resample2d and
-    its backward (dflow, as the path runs it) on G's (2, 3, 512, 512)
-    warp and the teacher's, correlation on the teacher's FlowNetC
-    features (2, 256, 64, 64), channelnorm on its (2, 3 | 2, 512, 512)
-    differences and flows; each timed (fp32; the backward in the path's
-    bf16) beside its plain version, its bound and the library call where
-    one computes it. Returns {kernel: row}."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    gen = torch.Generator(device="cuda").manual_seed(97531)
-    b, (h, w) = POSE_BATCH, POSE_CROP
-    img = (b, 3, h, w)
+def resample_path_rows(rs, img, path, gen):
+    """resample2d and its backward (dflow, as the training paths run it)
+    at a path's warp shape ``img``, fp32 and bf16, against their plain
+    versions (the forward within ``TOL_RESAMPLE_*``, dflow bit for bit);
+    each timed (fp32; the backward in the paths' bf16) beside its plain
+    version, its bound and the library call. Returns ({kernel: row},
+    {kernel: [errors]})."""
     x32 = torch.randn(img, generator=gen, device="cuda") * 2 + 0.5
     g32 = torch.randn(img, generator=gen, device="cuda")
     flow = mixed_flow(img, gen)
@@ -4474,7 +4546,7 @@ def check_pose_kernels(rs, corr, cn):
         if not ok:
             raise AssertionError(f"resample2d_bwd {img} {dtype}: dflow not bit for bit")
         errs.setdefault("resample2d_bwd", []).append(0.0)
-        phase("kernel_check", name="resample2d", shape=list(img), path="pose",
+        phase("kernel_check", name="resample2d", shape=list(img), path=path,
               dtype=str(dtype).split(".")[-1], error=err, dflow_bitwise=bitwise)
     bound, bound_by = resample_bound_ms(img, 4)
     rows["resample2d"] = dict(time_resample(rs, x32, flow), shape=list(img), calls=1,
@@ -4488,6 +4560,23 @@ def check_pose_kernels(rs, corr, cn):
         "plain_ms": time_ms(lambda: rs.resample2d_bwd_plain(x, f, g, False), iters=5),
         "library_ms": time_ms(grid_sample_bwd(x, f, g, False)),
         "bound_ms": bound, "bound_by": bound_by}
+    return rows, errs
+
+
+def check_pose_kernels(rs, corr, cn):
+    """Phase 3e: the four kernels of the dancing path at its 512x512
+    shapes, against their plain versions, fp32 and bf16: resample2d and
+    its backward (dflow, as the path runs it) on G's (2, 3, 512, 512)
+    warp and the teacher's, correlation on the teacher's FlowNetC
+    features (2, 256, 64, 64), channelnorm on its (2, 3 | 2, 512, 512)
+    differences and flows; each timed (fp32; the backward in the path's
+    bf16) beside its plain version, its bound and the library call where
+    one computes it. Returns {kernel: row}."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(97531)
+    b, (h, w) = POSE_BATCH, POSE_CROP
+    rows, errs = resample_path_rows(rs, (b, 3, h, w), "pose", gen)
     feat = (b, 256, h // 8, w // 8)
     x1 = torch.randn(feat, generator=gen, device="cuda")
     x2 = torch.randn(feat, generator=gen, device="cuda")
@@ -4766,6 +4855,500 @@ def pose_vid2vid_entry(rs, spade_mod, corr, cn, device="cuda", overrides=None, h
                fp32_step_teacher=step["teacher"])
     phase("pose_vid2vid_entry", **row)
     return row
+
+
+def _segment_mask(ys, xs, a, b, radius):
+    """Pixels of the grid (ys, xs) within ``radius`` of segment a-b
+    ((x, y) points)."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    d = b - a
+    t = np.clip(((xs - a[0]) * d[0] + (ys - a[1]) * d[1]) / max(float(d @ d), 1e-6), 0, 1)
+    return (xs - a[0] - t * d[0]) ** 2 + (ys - a[1] - t * d[1]) ** 2 <= radius ** 2
+
+
+# DensePose part index of each BODY_25 limb (the torso 1 / 2 by side, the
+# head 23 / 24: the face parts D's face box looks for), and its radius
+# in units of the person's height
+DENSEPOSE_LIMBS = [((1, 8), (1, 2), 0.09), ((2, 3), 16, 0.035), ((3, 4), 20, 0.03),
+                   ((5, 6), 15, 0.035), ((6, 7), 19, 0.03), ((9, 10), 7, 0.045),
+                   ((10, 11), 11, 0.04), ((12, 13), 8, 0.045), ((13, 14), 12, 0.04),
+                   ((11, 22), 6, 0.03), ((14, 19), 5, 0.03), ((4, 4), 3, 0.03),
+                   ((7, 7), 4, 0.03), ((0, 1), (23, 24), 0.06)]
+
+
+def paint_densepose(iuv, inst, person, height, inst_id):
+    """Paint one person's DensePose parts (index in channel 2, U and V in
+    0 and 1) into ``iuv`` and its instance id into channel 0 of
+    ``inst``, over a region wide enough to hold its OpenPose strokes."""
+    h, w = iuv.shape[:2]
+    xy = np.asarray(person["pose_keypoints_2d"], np.float32).reshape(-1, 3)[:, :2]
+    hands = [np.asarray(person[k], np.float32).reshape(-1, 3)[:, :2]
+             for k in ("hand_left_keypoints_2d", "hand_right_keypoints_2d")]
+    pts = np.concatenate([xy] + [p for p in hands if p.any()])
+    pad = 0.13 * height
+    y0, y1 = int(max(pts[:, 1].min() - pad, 0)), int(min(pts[:, 1].max() + pad, h))
+    x0, x1 = int(max(pts[:, 0].min() - pad, 0)), int(min(pts[:, 0].max() + pad, w))
+    ys, xs = np.mgrid[y0:y1, x0:x1].astype(np.float32)
+    region = np.zeros(ys.shape, bool)
+    for (i, j), _, radius in DENSEPOSE_LIMBS:
+        region |= _segment_mask(ys, xs, xy[i], xy[j], (radius + 0.03) * height)
+    for i in (4, 7):
+        region |= _segment_mask(ys, xs, xy[i], xy[i], 0.12 * height)
+    inst[y0:y1, x0:x1, 0][region] = inst_id
+    part = np.zeros(ys.shape, np.uint8)
+    for (i, j), parts, radius in DENSEPOSE_LIMBS:
+        mask = _segment_mask(ys, xs, xy[i], xy[j], radius * height)
+        if isinstance(parts, tuple):  # split by side of the body's axis
+            part[mask] = np.where(xs[mask] < xy[1][0], parts[0], parts[1])
+        else:
+            part[mask] = parts
+    body = part > 0
+    view = iuv[y0:y1, x0:x1]
+    view[..., 2][body] = part[body]
+    view[..., 0][body] = ((ys[body] * 7) % 256).astype(np.uint8)
+    view[..., 1][body] = ((xs[body] * 5) % 256).astype(np.uint8)
+
+
+def write_youtube_dataset(root, sequences=YTD_SEQUENCES, frames=YTD_FRAMES, hw=YTD_RAW_HW,
+                          seed=ENTRY_SEED):
+    """A seeded folder dataset of the YouTubeDancing layout under ``root``:
+    RGB frames (PNG), DensePose IUV maps (PNG: the part index 0-24 in
+    channel 2), OpenPose JSON of two people and DensePose instance maps
+    (PNG: the id in channel 0). A dancer walks across each sequence from
+    a start that differs by sequence (its own crop box moves frame to
+    frame), a smaller bystander with no hands in view stands to its left
+    with its own instance id, skeleton and parts. Returns the root."""
+    from imaginaire_tpu_torch.data.png import encode_png
+
+    def write_png(path, image):  # zlib's fastest level: the files are written once
+        path.write_bytes(encode_png(image, 1))
+
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    root = Path(root)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    sin_a, cos_a = np.sin(xs * 0.03 + ys * 0.02), np.cos(xs * 0.03 + ys * 0.02)
+    for s_ in range(sequences):
+        tint = rng.uniform(0.3, 1.0, 3)
+        seq = f"seq{s_:04d}"
+        for kind in ("images", "pose_maps-densepose", "poses-openpose", "human_instance_maps"):
+            (root / kind / seq).mkdir(parents=True, exist_ok=True)
+        for t in range(frames):
+            phase_ = t * 0.4 + s_  # a wave pattern moving frame to frame
+            wave = sin_a * np.cos(phase_) + cos_a * np.sin(phase_)
+            img = 0.5 + 0.35 * wave[..., None] * tint
+            height, top = 0.7 * h, 0.12 * h
+            dancer = openpose_person((0.38 + 0.04 * (s_ % 4)) * w + YTD_WALK * t, top, height,
+                                     t * 0.7 + s_, rng)
+            bystander = openpose_person(0.1 * w, 0.5 * h, 0.35 * h, t + s_, rng,
+                                        hands=(False, False))
+            iuv = np.zeros((h, w, 3), np.uint8)
+            inst = np.zeros((h, w, 3), np.uint8)
+            paint_densepose(iuv, inst, bystander, 0.35 * h, YTD_BYSTANDER_ID)
+            paint_densepose(iuv, inst, dancer, height, YTD_DANCER_ID)
+            name = f"{t:05d}"
+            write_png(root / "images" / seq / f"{name}.png",
+                      np.clip(img * 255, 0, 255).astype(np.uint8))
+            write_png(root / "pose_maps-densepose" / seq / f"{name}.png", iuv)
+            write_png(root / "human_instance_maps" / seq / f"{name}.png", inst)
+            (root / "poses-openpose" / seq / f"{name}.json").write_text(
+                json.dumps({"people": [dancer, bystander]}))
+    return str(root)
+
+
+def youtube_entry_config(root, data_root, overrides=None, name="youtube.yaml"):
+    """The YouTubeDancing config with the forced overrides (its splits and
+    a test split at the folder dataset, images ``ext: png``, the weights'
+    ``allow_random_init``, the finetune's iterations), the harness's
+    cadences, then ``overrides``; written to ``root / name``."""
+    import yaml
+
+    from imaginaire_tpu_torch.config import load_yaml, recursive_update
+
+    cfg = load_yaml(YTD_CONFIG)
+    for split in ("train", "val"):
+        cfg["data"][split]["roots"] = [data_root]
+    cfg["data"]["input_types"][0]["images"]["ext"] = "png"
+    for section in (YTD_FORCED, YTD_CADENCES, overrides or {}):
+        recursive_update(cfg, copy.deepcopy(section))
+    cfg["test_data"] = dict(copy.deepcopy(cfg["data"]), test=copy.deepcopy(cfg["data"]["val"]))
+    path = Path(root) / name
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def pose_fs_vid2vid_entry(rs, spade_mod, corr, cn, device="cuda", overrides=None,
+                          raw_hw=YTD_RAW_HW):
+    """Phase 18: fs-vid2vid YouTubeDancing through the port's entries:
+    ``train.main`` for 2 iterations (batch 6, 512x256, sequence length 4,
+    bf16, DensePose + OpenPose labels, the few-shot face D) on the seeded
+    folder dataset, the losses finite, the weight generator and the flow
+    network moved, the checkpoint verified; one fp32 warp-frame G step
+    through the kernels against their plain versions
+    (``fp32_warp_g_step``); ``inference.main`` with the config's finetune
+    (``YTD_FINETUNE_ITER`` iterations): only the finetune prefixes'
+    parameters move, every frame of the driving sequence is cropped with
+    one box, and the PNGs are G's clipped frames; resample2d and dflow at
+    the path's (6, 3, 512, 256) warp; the hyper route on the unit pose
+    config. The six launch counters are reset just before and read just
+    after each part."""
+    import gc
+    import threading
+
+    from imaginaire_tpu_torch import inference, train
+    from imaginaire_tpu_torch.data.base import BaseDataset
+    from imaginaire_tpu_torch.data.png import decode_png
+    from imaginaire_tpu_torch.model_utils import fs_vid2vid
+    from imaginaire_tpu_torch.resilience.integrity import verify_files
+    from imaginaire_tpu_torch.trainers.fs_vid2vid import Trainer
+    from imaginaire_tpu_torch.utils import checkpoint as ckpt_lib
+    from imaginaire_tpu_torch.utils.meters import ScalarWriter
+    from imaginaire_tpu_torch.utils.visualization import tensor2im
+
+    cuda = device == "cuda"
+    torch.backends.cudnn.allow_tf32 = True  # training runs the defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="pose_fs_entry_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        root = write_youtube_dataset(tmp / "data", hw=raw_hw)
+        data_s = time.perf_counter() - t0
+        cfg_path = youtube_entry_config(tmp, root, overrides)
+        logdir = tmp / "log"
+
+        # the person crop's host seconds a call, the driving sequences'
+        # boxes (a thread marks the window it processes), the finetune
+        saves, before, crop_s, boxes, tuned, last, setup = [], {}, [], [], {}, {}, {}
+        local = threading.local()
+        save, init_state, finetune = Trainer.save_checkpoint, Trainer.init_state, Trainer.finetune
+        gen_update = Trainer.gen_update
+        process, crop = BaseDataset.process_item, fs_vid2vid.crop_person_from_data
+
+        def timed_save(self, *a, **k):
+            t = time.perf_counter()
+            path = save(self, *a, **k)
+            saves.append(time.perf_counter() - t)
+            return path
+
+        watched = ("weight_generator.fc_spade_e_0_fc0.weight",
+                   "weight_generator.fc_spade_e_3_out.weight",
+                   "flow_network_ref.conv_flow.conv.weight",
+                   "flow_network_ref.down_in.conv.weight")
+
+        def init_and_watch(self, *a, **k):
+            setup.setdefault("train_until_init_state_s", time.perf_counter() - t0)
+            out = init_state(self, *a, **k)
+            before.update({n: self.net_G.get_parameter(n).detach().clone() for n in watched})
+            return out
+
+        def kept_update(self, data, *a, **k):
+            last["data"] = data  # the fp32 step's batch: the last one trained on
+            return gen_update(self, data, *a, **k)
+
+        def marked_process(self, data, rng, thread_common_attr=True):
+            local.seq = (self.inference_sequence_idx
+                         if thread_common_attr and self.threads_common_attr else None)
+            return process(self, data, rng, thread_common_attr)
+
+        def timed_crop(cfg, is_inference, data, rng=None):
+            t = time.perf_counter()
+            out = crop(cfg, is_inference, data, rng=rng)
+            crop_s.append(time.perf_counter() - t)
+            if getattr(local, "seq", None) is not None:
+                boxes.append((local.seq, tuple(out["common_attr"]["crop_coords"])))
+            return out
+
+        timed_crop.uses_common_attr = True
+
+        def watched_finetune(self, data, inference_args=None):
+            setup["inference_until_finetune_s"] = time.perf_counter() - t0
+            params = {n: p.detach().clone() for n, p in self.net_G.named_parameters()}
+            t = time.perf_counter()
+            out = finetune(self, data, inference_args)
+            tuned["s"] = time.perf_counter() - t
+            mask = self.finetune_mask()
+            tuned["moved"] = {n for n, p in self.net_G.named_parameters()
+                              if not torch.equal(p.detach(), params[n])}
+            tuned["trainable"] = {n for n, m in mask.items() if m}
+            tuned["counts"] = (self.opt_G.count, self.opt_D.count)
+            return out
+
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        reset_all_launches(rs, corr, cn, spade_mod)
+        Trainer.save_checkpoint, Trainer.init_state = timed_save, init_and_watch
+        Trainer.gen_update = kept_update
+        BaseDataset.process_item, fs_vid2vid.crop_person_from_data = marked_process, timed_crop
+        try:
+            t0 = time.perf_counter()
+            trainer = train.main(["--config", str(cfg_path), "--logdir", str(logdir),
+                                  "--seed", str(ENTRY_SEED), "--device", device,
+                                  "--max_iter", str(YTD_ITERATIONS)])
+            train_s = time.perf_counter() - t0
+        finally:
+            Trainer.save_checkpoint, Trainer.init_state = save, init_state
+            Trainer.gen_update = gen_update
+            BaseDataset.process_item, fs_vid2vid.crop_person_from_data = process, crop
+        launches = all_launches(rs, corr, cn, spade_mod)
+        peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else "not measured"
+        batch = int(trainer.cfg.data.train.batch_size)
+        train_crop_s = list(crop_s)
+        if launches != YTD_ENTRY_LAUNCHES or trainer.compute_dtype != torch.bfloat16 \
+                or trainer.sequence_length != YTD_SEQ or batch != YTD_BATCH \
+                or trainer.add_dis_names != ["face"] or trainer.net_G.num_input_channels != 6 \
+                or trainer.net_G.frame_hw != YTD_HW:
+            raise AssertionError(f"YouTubeDancing training entry: launches {launches} (expected "
+                                 f"{YTD_ENTRY_LAUNCHES}), compute dtype "
+                                 f"{trainer.compute_dtype}, sequence length "
+                                 f"{trainer.sequence_length}, batch {batch}, region Ds "
+                                 f"{trainer.add_dis_names}, G label channels "
+                                 f"{trainer.net_G.num_input_channels}, frame "
+                                 f"{trainer.net_G.frame_hw}")
+        scalars = [r for r in ScalarWriter(logdir).read() if r["kind"] == "counter"
+                   and r["name"].split("/")[0] in ("gen_update", "dis_update")]
+        names = {r["name"] for r in scalars}
+        bad = [r for r in scalars if not np.isfinite(r["value"])
+               or r["name"].endswith("nonfinite_count")]
+        want_terms = {f"gen_update/{k}" for k in ("GAN", "FeatureMatching", "GAN_face",
+                                                  "FeatureMatching_face", "Perceptual", "Flow")}
+        want_terms |= {"dis_update/GAN", "dis_update/GAN_face"}
+        if bad or not want_terms <= names:
+            raise AssertionError(f"meters.jsonl: {sorted(names)}, non-finite {bad[:5]}, "
+                                 f"expected {sorted(want_terms)}")
+        gan_face = {r["name"]: r["value"] for r in scalars if r["name"].endswith("GAN_face")}
+        moved = {n: (trainer.net_G.get_parameter(n).detach() - before[n]).abs().max().item()
+                 for n in watched}
+        if not all(v > 0 for v in moved.values()):
+            raise AssertionError(f"parameters that did not move: {moved}")
+        checkpoint = ckpt_lib.latest_checkpoint_path(str(logdir))
+        integrity = ckpt_lib.read_integrity_sidecar(checkpoint)
+        t0 = time.perf_counter()
+        verify_files(checkpoint, integrity["files"], context=checkpoint)
+        verify_s = time.perf_counter() - t0
+        if ckpt_lib.parse_checkpoint_name(checkpoint)[1] != YTD_ITERATIONS \
+                or integrity["n_leaves"] != len(trainer.state_tensors()):
+            raise AssertionError(f"checkpoint {checkpoint}: {integrity['n_leaves']} records")
+        timings = {k: [t * 1e3 for t in v] for k, v in trainer.timings.items()}
+        params = (sum(p.numel() for p in trainer.net_G.parameters()),
+                  sum(p.numel() for p in trainer.net_D.parameters()))
+
+        # one fp32 warp-frame G step (TF32 off) on the last batch trained on,
+        # through the kernels against the same step through their plain
+        # versions
+        data = {k: v.float() if torch.is_tensor(v) and v.is_floating_point() else v
+                for k, v in last.pop("data").items()}
+        trainer.compute_dtype = torch.float32
+        gen = torch.Generator(device=device).manual_seed(9)
+        data_t = trainer._get_data_t(data, 2, data["label"][:, 1:2], torch.tanh(
+            torch.randn(data["images"][:, 1:2].shape, generator=gen, device=device)))
+        data_t["past_stacks"] = {}
+        spade_mod.launches = spade_mod.bwd_launches = 0
+        step = fp32_warp_g_step(trainer, data_t, rs, corr, cn, TOL_FS_STEP_REL, warps=2,
+                                flow_losses=("Flow", "Flow_L1"))
+        step["launches"].update(spade_modulation=spade_mod.launches,
+                                spade_modulation_bwd=spade_mod.bwd_launches)
+        if not {"GAN_face", "FeatureMatching_face"} <= set(step["plain"]) \
+                or spade_mod.launches or spade_mod.bwd_launches:
+            raise AssertionError(f"fp32 warp-frame G step: losses {sorted(step['plain'])}, "
+                                 f"launches {step['launches']}")
+        del data, data_t, trainer
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # inference through the entry from the checkpoint, with the finetune
+        kept, save_frame = {}, Trainer._save_test_frame
+
+        def keep(self, output_dir, key, t, fake):
+            kept[(key, t)] = tensor2im(fake[0].float().clamp(-1, 1).permute(1, 2, 0)
+                                       .cpu().numpy())
+            return save_frame(self, output_dir, key, t, fake)
+
+        out = tmp / "frames"
+        boxes.clear()
+        reset_all_launches(rs, corr, cn, spade_mod)
+        Trainer._save_test_frame, Trainer.finetune = keep, watched_finetune
+        BaseDataset.process_item, fs_vid2vid.crop_person_from_data = marked_process, timed_crop
+        try:
+            t0 = time.perf_counter()
+            itrainer = inference.main(["--config", str(cfg_path), "--checkpoint", checkpoint,
+                                       "--output_dir", str(out),
+                                       "--logdir", str(tmp / "inference"),
+                                       "--seed", str(ENTRY_SEED), "--device", device])
+            inference_s = time.perf_counter() - t0
+        finally:
+            Trainer._save_test_frame, Trainer.finetune = save_frame, finetune
+            BaseDataset.process_item, fs_vid2vid.crop_person_from_data = process, crop
+        inference_launches = all_launches(rs, corr, cn, spade_mod)
+        driving = int(itrainer.cfg.inference_args.driving_seq_index)
+        written = sorted(str(p.relative_to(out)) for p in out.rglob("*.png"))
+        want_files = [f"seq{driving:04d}/{t:04d}.png" for t in range(YTD_FRAMES)]
+        png_equal = written == want_files and all(
+            np.array_equal(decode_png((out / key / f"{t:04d}.png").read_bytes()), img)
+            for (key, t), img in kept.items())
+        driving_boxes = [b for seq, b in boxes if seq == driving]
+        if written != want_files or not png_equal or len(kept) != YTD_FRAMES \
+                or inference_launches != YTD_INFERENCE_LAUNCHES \
+                or len(driving_boxes) != YTD_FRAMES or len(set(driving_boxes)) != 1 \
+                or tuned.get("counts") != (YTD_FINETUNE_ITER,) * 2 \
+                or not tuned["moved"] or not tuned["moved"] <= tuned["trainable"]:
+            raise AssertionError(
+                f"YouTubeDancing inference: written {written}, PNGs equal G's clipped frames "
+                f"{png_equal}, launches {inference_launches} (expected "
+                f"{YTD_INFERENCE_LAUNCHES}), driving boxes {driving_boxes}, finetune steps "
+                f"{tuned.get('counts')}, moved outside the prefixes "
+                f"{sorted(tuned.get('moved', set()) - tuned.get('trainable', set()))[:5]}")
+        del itrainer
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # the kernels at the path's warp, and the hyper route
+        kernel_rows = {}
+        if cuda:
+            torch.backends.cudnn.allow_tf32 = False
+            rows, errs = resample_path_rows(rs, (YTD_BATCH, 3) + YTD_HW, "youtube",
+                                            torch.Generator(device="cuda").manual_seed(97532))
+            torch.backends.cudnn.allow_tf32 = True
+            for name, row in rows.items():
+                row["bound_share"] = row["bound_ms"] / row["ms"]
+                row["max_abs_err"] = errs[name][0]
+                phase("kernel", name=name, path="youtube", **row)
+            kernel_rows = rows
+        hyper = pose_hyper_route(rs, spade_mod, corr, cn, device)
+    seq = YTD_SEQ
+    kinds = ["first"] + ["warp"] * (seq - 1)
+    by_type = {s_: {kind: [ms for i, ms in enumerate(timings[s_]) if kinds[i % seq] == kind]
+                    for kind in ("first", "warp")} for s_ in ("dis_step", "gen_step")}
+    warm = timings["iteration"][1:]
+    row = {"config": str(YTD_CONFIG.relative_to(REPO)), "sequences": YTD_SEQUENCES,
+           "frames": YTD_FRAMES, "raw_hw": list(raw_hw), "batch": YTD_BATCH,
+           "sequence_length": seq, "compute_dtype": "bfloat16",
+           "generator_params": params[0], "discriminator_params": params[1],
+           "data_s": data_s, "train_s": train_s, "iterations": YTD_ITERATIONS,
+           "iteration_ms": timings["iteration"], "first_iteration_ms": timings["iteration"][0],
+           "warm_iteration_ms": float(np.median(warm)) if warm else None,
+           "warm_frames_per_s": (YTD_BATCH * seq / (float(np.median(warm)) / 1e3)
+                                 if warm else None),
+           "step_ms_by_frame": by_type,
+           "warp_frame_dis_step_ms": float(np.median(by_type["dis_step"]["warp"])),
+           "warp_frame_gen_step_ms": float(np.median(by_type["gen_step"]["warp"])),
+           "person_crop_ms_a_call": 1e3 * float(np.mean(train_crop_s)),
+           "person_crop_ms_an_item": 2e3 * float(np.mean(train_crop_s)),
+           "person_crop_calls": len(train_crop_s),
+           "data_wait_ms": timings["data_wait"], "peak_mem_gib": peak,
+           "launches": launches, "gan_face": gan_face, "moved": moved,
+           "checkpoint_bytes": sum(f["size"] for f in integrity["files"].values()),
+           "checkpoint_save_s": saves, "checkpoint_files_verify_s": verify_s,
+           **setup, "finetune_s": tuned["s"], "finetune_moved": len(tuned["moved"]),
+           "finetune_trainable": len(tuned["trainable"]),
+           "inference_s": inference_s, "inference_frames": len(written),
+           "inference_launches": inference_launches, "driving_box": list(driving_boxes[0]),
+           "kernels": kernel_rows, "hyper": hyper,
+           "phase_s": time.perf_counter() - t_phase,
+           "nvidia_smi": nvidia_smi() if cuda else "not measured"}
+    row.update(fp32_step_kernels=step["kernels"], fp32_step_plain=step["plain"],
+               fp32_worst_rel=step["worst_rel"], fp32_step_launches=step["launches"],
+               fp32_step_teacher=step["teacher"])
+    phase("pose_fs_vid2vid_entry", **row)
+    return row
+
+
+def restore_fused(net, values):
+    """Put back the modulation routes ``set_fused`` replaced."""
+    for m, value in values.items():
+        m.fused_modulation = value
+
+
+def fused_values(net):
+    from imaginaire_tpu_torch.layers.activation_norm import (
+        HyperSpatiallyAdaptiveNorm,
+        SpatiallyAdaptiveNorm,
+    )
+
+    return {m: m.fused_modulation for m in net.modules()
+            if isinstance(m, (SpatiallyAdaptiveNorm, HyperSpatiallyAdaptiveNorm))}
+
+
+def pose_hyper_route(rs, spade_mod, corr, cn, device="cuda"):
+    """Phase 18, part 2: the ``hyper_spatially_adaptive`` route of the
+    fs generator on pose labels (``configs/unit_test/fs_vid2vid_pose.yaml``,
+    27 one-hot OpenPose channels, 64x64, its region and temporal Ds),
+    which runs the modulation kernel: one fp32 G step on a warp frame and
+    one fp32 forward (TF32 off), each through the kernels against the
+    same through their plain versions (``TOL_FS_STEP_REL``,
+    ``TOL_FS_FRAME``), the modulation's and resample2d's launches counted
+    and held to ``YTD_HYPER_LAUNCHES``."""
+    from imaginaire_tpu_torch.config import Config
+    from imaginaire_tpu_torch.trainers.fs_vid2vid import Trainer
+
+    trainer = Trainer(Config(str(YTD_HYPER_CONFIG)), device=device, train=True)
+    trainer.init_state(seed=ENTRY_SEED)
+    trainer.compute_dtype = torch.float32
+    gen = torch.Generator(device=device).manual_seed(11)
+    hw, c = YTD_HYPER_HW, YTD_HYPER_LABELS
+
+    def label(*lead):
+        return (torch.rand(lead + (c,) + hw, generator=gen, device=device) > 0.9).float()
+
+    def image(*lead):
+        return torch.tanh(torch.randn(lead + (3,) + hw, generator=gen, device=device))
+
+    data_t = {"label": label(1), "image": image(1), "ref_labels": label(1, 1),
+              "ref_images": image(1, 1), "prev_labels": label(1, 1), "prev_images": image(1, 1),
+              "past_stacks": {}}
+    fused = fused_values(trainer.net_G)
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        snap = _snapshot(trainer)
+
+        def g_step():
+            out = trainer._step(trainer.net_G, trainer.opt_G,
+                                lambda: trainer.gen_forward(data_t)[0], None, "gen_step")
+            return {k: float(v) for k, v in out.items()}
+
+        reset_all_launches(rs, corr, cn, spade_mod)
+        kernel_step = g_step()
+        step_launches = all_launches(rs, corr, cn, spade_mod)
+        _restore(trainer, snap)
+        set_fused(trainer.net_G, "none")
+        with plain_kernels():
+            reset_all_launches(rs, corr, cn, spade_mod)
+            plain_step = g_step()
+            plain_launches = sum(all_launches(rs, corr, cn, spade_mod).values())
+        restore_fused(trainer.net_G, fused)
+        with torch.inference_mode():
+            frame = {k: v for k, v in data_t.items() if k not in ("image", "past_stacks")}
+            reset_all_launches(rs, corr, cn, spade_mod)
+            kernel = trainer._apply_G(trainer.inference_params(), frame)["fake_images"]
+            frame_launches = all_launches(rs, corr, cn, spade_mod)
+            set_fused(trainer.net_G, "none")
+            with plain_kernels():
+                plain = trainer._apply_G(trainer.inference_params(), frame)["fake_images"]
+            frame_err = (kernel - plain).abs().max().item()
+    finally:
+        restore_fused(trainer.net_G, fused)
+        torch.backends.cudnn.allow_tf32 = True
+    rel = {k: abs(kernel_step[k] - plain_step[k]) / max(abs(plain_step[k]), 1e-30)
+           for k in plain_step}
+    worst = max(rel, key=rel.get)
+    want = YTD_HYPER_LAUNCHES
+    if step_launches != want["g_step"] or frame_launches != want["forward"] \
+            or plain_launches or rel[worst] > TOL_FS_STEP_REL or frame_err > TOL_FS_FRAME \
+            or not {"GAN_face", "GAN_hand"} <= set(plain_step):
+        raise AssertionError(
+            f"pose hyper route: G step launches {step_launches} / plain {plain_launches}, "
+            f"forward launches {frame_launches} (expected {want}); {worst} differs by "
+            f"{rel[worst]} (tol {TOL_FS_STEP_REL}), forward by {frame_err} (tol "
+            f"{TOL_FS_FRAME}); losses {sorted(plain_step)}")
+    del trainer, snap
+    return {"config": str(YTD_HYPER_CONFIG.relative_to(REPO)), "g_step_launches": step_launches,
+            "forward_launches": frame_launches, "fp32_step_kernels": kernel_step,
+            "fp32_step_plain": plain_step, "fp32_worst_rel": [worst, rel[worst]],
+            "fp32_forward_max_abs": frame_err}
 
 
 def one_hot_frame(rng):
@@ -5289,6 +5872,7 @@ def main():
     funit = timed(funit_entry, rs, spade_mod, corr, cn)
     pose_shapes = timed(check_pose_kernels, rs, corr, cn)
     pose = timed(pose_vid2vid_entry, rs, spade_mod, corr, cn)
+    ytd = timed(pose_fs_vid2vid_entry, rs, spade_mod, corr, cn)
     phase("phase_seconds", **seconds, total=time.perf_counter() - t0)
 
     def p2p_launches(name):
@@ -5321,6 +5905,20 @@ def main():
         return {"train": pose["launches"][name],
                 "fp32_g_step": pose["fp32_step_launches"][name],
                 "inference": pose["inference_launches"][name]}
+
+    def ytd_launches(name):
+        """fs-vid2vid YouTubeDancing (phase 18): 2 training iterations, the
+        fp32 warp-frame G step, the inference entry with its finetune, the
+        hyper route's G step and forward on the unit pose config."""
+        return {"train": ytd["launches"][name], "fp32_g_step": ytd["fp32_step_launches"][name],
+                "inference": ytd["inference_launches"][name],
+                "hyper_g_step": ytd["hyper"]["g_step_launches"][name],
+                "hyper_forward": ytd["hyper"]["forward_launches"][name]}
+
+    def ytd_shape(name):
+        """The kernel at the YouTubeDancing path's (6, 3, 512, 256) warp."""
+        return {key: ytd["kernels"][name][key] for key in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")}
 
     def pose_shape(name):
         """The kernel at the dancing path's 512x512 shapes (phase 3e)."""
@@ -5355,6 +5953,7 @@ def main():
         "unpaired_launches": unpaired_launches("spade_modulation"),
         "funit_launches": funit_launches("spade_modulation"),
         "pose_launches": pose_launches("spade_modulation"),
+        "ytd_launches": ytd_launches("spade_modulation"),
         # the hyper route's 12 calls of a batch-1 forward at 512x512, fp32
         "fs_forward": per_call_set(rows, "float32", "fs"),
         # the 19 calls of one bs-4 generator forward, fp32, n_pairs 1
@@ -5370,6 +5969,7 @@ def main():
         "unpaired_launches": unpaired_launches("spade_modulation_bwd"),
         "funit_launches": funit_launches("spade_modulation_bwd"),
         "pose_launches": pose_launches("spade_modulation_bwd"),
+        "ytd_launches": ytd_launches("spade_modulation_bwd"),
         "fs_backward": per_call_set(bwd_rows, "bfloat16", "fs"),
         # the 19 calls of one G step's backward, bf16 (the training path's
         # type), n_pairs 1; max_abs_err is the fp32 checks' worst error
@@ -5399,7 +5999,9 @@ def main():
         "unpaired_launches": unpaired_launches("resample2d"),
         "funit_launches": funit_launches("resample2d"),
         "pose_launches": pose_launches("resample2d"),
+        "ytd_launches": ytd_launches("resample2d"),
         "pose_shape": pose_shape("resample2d"),
+        "ytd_shape": ytd_shape("resample2d"),
         # one warp of the previous (1, 3, 512, 1024) frame, fp32, mixed flow
         **{key: rs_rows[0][key] for key in
            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}, {
@@ -5415,7 +6017,9 @@ def main():
         "unpaired_launches": unpaired_launches("resample2d_bwd"),
         "funit_launches": funit_launches("resample2d_bwd"),
         "pose_launches": pose_launches("resample2d_bwd"),
+        "ytd_launches": ytd_launches("resample2d_bwd"),
         "pose_shape": pose_shape("resample2d_bwd"),
+        "ytd_shape": ytd_shape("resample2d_bwd"),
         # the training warp's backward of (2, 3, 512, 1024) frames, bf16 (the
         # path's type), dflow alone (the path's), mixed flow; max_abs_err is
         # dflow's (0: bit for bit) and the fp32 dx checks' worst over the
@@ -5434,6 +6038,7 @@ def main():
         "unpaired_launches": unpaired_launches("correlation"),
         "funit_launches": funit_launches("correlation"),
         "pose_launches": pose_launches("correlation"),
+        "ytd_launches": ytd_launches("correlation"),
         "pose_shape": pose_shape("correlation"),
         # the one call of a FlowNet2 forward of one frame pair, fp32
         **{key: corr_rows[0][key] for key in
@@ -5449,6 +6054,7 @@ def main():
         "unpaired_launches": unpaired_launches("channelnorm"),
         "funit_launches": funit_launches("channelnorm"),
         "pose_launches": pose_launches("channelnorm"),
+        "ytd_launches": ytd_launches("channelnorm"),
         "pose_shape": pose_shape("channelnorm"),
         # the 6 calls (4 of 3 channels, 2 of 2) of a FlowNet2 forward of
         # one frame pair, fp32
@@ -5468,7 +6074,7 @@ def main():
              "spade_eval_entry": evaluation, "fs_vid2vid_entry": fs,
              "wc_vid2vid_entry": wc, "pix2pixHD_entry": p2p, "unpaired_entry": unpaired,
              "funit_entry": funit, "pose_kernels": pose_shapes, "pose_vid2vid_entry": pose,
-             "kernels": kernels}, indent=1))
+             "pose_fs_vid2vid_entry": ytd, "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -35,7 +35,9 @@ packages).
 moments (trees shaped like the module's ``params``) and step count into
 the port's ``Adam`` over ``module.parameters()``, so that both packages
 start a step from the same state; ``to_port_layout`` maps any such tree
-(gradients too) onto the port's names and layouts.
+(gradients too) onto the port's names and layouts, and ``flax_path``
+names the JAX path of a port parameter (fs-vid2vid's finetune reads its
+segments, as the JAX finetune's mask does).
 """
 
 from __future__ import annotations
@@ -74,6 +76,17 @@ def _target(module, path):
         raise KeyError(f"flax leaf {'/'.join(path)}: the port module has no "
                        f"parameter or buffer {'.'.join(names + [attr])!r}")
     return owner, ".".join(names + [attr]), attr
+
+
+def flax_path(name):
+    """The JAX variable path of the port parameter ``name`` (the inverse
+    of ``_target``): the port's submodule names are the flax path's and a
+    ``weight`` is a ``kernel``; the auto-named segments that the port
+    folds into their parents (``BatchNorm_0``) are not recovered."""
+    path = name.split(".")
+    if path[-1] == "weight":
+        path[-1] = "kernel"
+    return tuple(path)
 
 
 def _to_torch_layout(path, value, owner):

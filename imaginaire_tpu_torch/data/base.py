@@ -34,7 +34,14 @@ guesses no width. The augmented coordinates of each
 the post ops run, and come out in the item; OpenPose's dict frames have
 no such stash. ``full_data_ops``
 (``module::function``) then see the whole item; they receive the item's
-``rng`` too. ``decode_pkl`` unpickles each frame, and
+``rng`` too, and may consume a data type (the person crop takes
+``human_instance_maps`` out of the item). An op marked
+``uses_common_attr`` (the person crop) shares attributes across the
+windows of a pinned inference sequence: the dataset hands it the
+sequence's ``common_attr`` (its first window's crop box) and keeps what
+it leaves there; ``set_inference_sequence_idx`` clears them, and a
+window processed with ``thread_common_attr=False`` (a few-shot
+reference) neither reads nor writes them. ``decode_pkl`` unpickles each frame, and
 ``convert::module::function`` is a function of the frame list that may
 return a structured payload in its place (wc-vid2vid's
 ``decode_unprojections``: ``{resolution: (T, N, 3)}``), which passes
@@ -48,6 +55,7 @@ import json
 import os
 import pickle
 import random
+import threading
 
 import numpy as np
 
@@ -115,6 +123,15 @@ class BaseDataset:
             self.pre_aug_ops[name] = _parse_ops(cfg_get(info, "pre_aug_ops", None))
             self.post_aug_ops[name] = _parse_ops(cfg_get(info, "post_aug_ops", None))
         self.full_data_ops = _parse_ops(cfg_get(self.cfgdata, "full_data_ops", None))
+        # the sequence-level attributes of a pinned inference sequence, the
+        # pin they belong to (a window of an earlier pin must not write
+        # them), and whether an op uses them
+        self.threads_common_attr = is_inference and any(
+            getattr(resolve_function(*spec.split("::")), "uses_common_attr", False)
+            for spec in self.full_data_ops)
+        self._common_attr = None
+        self._common_attr_pin = 0
+        self._common_attr_lock = threading.Lock()
         self.keypoint_data_types = list(
             cfg_get(self.cfgdata, "keypoint_data_types", None) or [])
         for ops in list(self.pre_aug_ops.values()) + list(self.post_aug_ops.values()):
@@ -179,11 +196,15 @@ class BaseDataset:
                     for fname in filenames]
                 for t in self.data_types}
 
-    def process_item(self, data, rng):
+    def process_item(self, data, rng, thread_common_attr=True):
         """Pre-ops -> joint augmentation (draws from ``rng``) -> keypoint
-        stash -> post-ops -> full-data ops -> normalize / one-hot.
-        Returns {type: (T, H, W, C) float32}, the ``<type>_xy`` keypoint
-        stashes and ``is_flipped``."""
+        stash -> post-ops -> full-data ops (with the pinned sequence's
+        ``common_attr`` unless ``thread_common_attr`` is False) ->
+        normalize / one-hot. Returns {type: (T, H, W, C) float32} of the
+        types the ops left, the ``<type>_xy`` keypoint stashes and
+        ``is_flipped``."""
+        thread = thread_common_attr and self.threads_common_attr
+        pin = self._common_attr_pin
         # the /255 is keyed on the source dtype, not on the values
         was_uint8 = {t: len(data[t]) > 0 and getattr(data[t][0], "dtype", None) == np.uint8
                      for t in self.data_types}
@@ -200,11 +221,22 @@ class BaseDataset:
                     pass
         data = self._apply_ops(data, self.post_aug_ops, rng)
         data.update(kp_copies)
+        if thread:
+            with self._common_attr_lock:
+                if self._common_attr and pin == self._common_attr_pin:
+                    data["common_attr"] = dict(self._common_attr)
         for spec in self.full_data_ops:
             data = resolve_function(*spec.split("::"))(self.cfgdata, self.is_inference,
                                                        data, rng=rng)
-        out = {k: data[k] for k in kp_copies}
+        common_attr = data.pop("common_attr", None)
+        if thread and common_attr:
+            with self._common_attr_lock:
+                if pin == self._common_attr_pin:
+                    self._common_attr = common_attr
+        out = {k: data[k] for k in kp_copies if k in data}
         for t in self.data_types:
+            if t not in data:
+                continue  # consumed by a full-data op (the instance maps)
             if not isinstance(data[t], (list, tuple)):
                 # a convert:: op replaced the frame list with a structured
                 # payload: the item carries it as it is
@@ -242,6 +274,12 @@ class BaseDataset:
             out[t] = np.stack(frames, axis=0)
         out["is_flipped"] = np.asarray(is_flipped)
         return out
+
+    def clear_common_attr(self):
+        """Forget the pinned sequence's attributes (a new pin)."""
+        with self._common_attr_lock:
+            self._common_attr = None
+            self._common_attr_pin += 1
 
     def _apply_ops(self, data, op_dict, rng=None):
         for t, ops in op_dict.items():

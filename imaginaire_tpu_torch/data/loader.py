@@ -13,6 +13,7 @@ and both raise.
 
 from __future__ import annotations
 
+import collections
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -94,9 +95,14 @@ class DataLoader:
 
     def _iter_prefetch(self, batches):
         """Items load on a thread pool while the consumer trains on the
-        previous batch; a bounded queue caps the read-ahead. A worker's
-        exception re-raises in the consumer; abandoning the iterator sets
-        a stop flag and drains the queue so the producer always ends."""
+        previous batch: the items of the next ``prefetch_batches`` batches
+        are queued to the threads together (so batches of one item, a
+        pinned sequence's frames, load side by side), and a bounded queue
+        caps the collated read-ahead. A worker's exception re-raises in
+        the consumer; abandoning the iterator sets a stop flag and drains
+        the queue so the producer always ends: it cancels the items that
+        no thread has started, so abandoning costs at most the items in
+        flight."""
         q = queue.Queue(maxsize=self.prefetch_batches)
         stop = threading.Event()
         sentinel = object()
@@ -112,12 +118,29 @@ class DataLoader:
         def produce():
             try:
                 with ThreadPoolExecutor(self.num_workers) as pool:
-                    for idxs in batches:
-                        if stop.is_set():
-                            return
-                        items = list(pool.map(self.dataset.__getitem__,
-                                              [int(i) for i in idxs]))
-                        put(self._collate(items))
+                    todo, pending = iter(batches), collections.deque()
+
+                    def submit():
+                        idxs = next(todo, None)
+                        if idxs is not None:
+                            pending.append([pool.submit(self.dataset.__getitem__, int(i))
+                                            for i in idxs])
+
+                    for _ in range(self.prefetch_batches):
+                        submit()
+                    try:
+                        while pending:
+                            items = []
+                            for future in pending[0]:
+                                if stop.is_set():
+                                    return
+                                items.append(future.result())
+                            pending.popleft()
+                            submit()
+                            put(self._collate(items))
+                    finally:  # items no thread has started are not loaded
+                        for f in (f for b in pending for f in b):
+                            f.cancel()
             except Exception as e:  # noqa: BLE001 — re-raised by the consumer
                 put(e)
             finally:

@@ -6,9 +6,12 @@ frames (``ref_images``, ``ref_labels``: (K, H, W, C)) of the same
 sequence, disjoint from the item's window. A training item draws from
 its ``random.Random`` (``item_rng``) in the JAX package's order: the
 time step, the window's start, the K reference frames (sorted), then
-the window's augmentation and full-data ops (the face crop's jitter),
-then the reference window's. The reference window is processed as an
-item of its own: its face crop is its own.
+the window's augmentation and full-data ops (the face or person crop's
+jitter), then the reference window's. The reference window is processed
+as an item of its own: its crop box is its own, and at inference it
+neither reads nor writes the pinned sequence's shared attributes (the
+driving frames' person crop box; see ``paired_videos.py`` for the
+first-frame barrier).
 
 An inference dataset is always pinned: its items are the frames of the
 driving sequence (``set_inference_sequence_idx``; the first sequence by
@@ -63,6 +66,7 @@ class Dataset(VideoDataset):
             ref_root, ref_seq, ref_stems = self.sequences[
                 self.inference_k_shot_sequence_index]
             ref_frames = [ref_stems[self.inference_k_shot_frame_index % len(ref_stems)]]
+            out = self._load_pinned(root_idx, seq, stems, index % len(stems), rng)
         else:
             required, time_step = self._sample_time_step(rng, extra=self.few_shot_K)
             candidates = (self.valid if time_step == 1 else
@@ -79,10 +83,10 @@ class Dataset(VideoDataset):
             pool = list(range(0, start)) + list(range(end, len(stems)))
             ref_frames = [stems[i] for i in sorted(rng.sample(pool, self.few_shot_K))]
             ref_root, ref_seq = root_idx, seq
-        out = self.concat_labels(self.process_item(
-            self.load_item(root_idx, seq, frames), rng))
+            out = self.process_item(self.load_item(root_idx, seq, frames), rng)
+        out = self.concat_labels(out)
         ref = self.concat_labels(self.process_item(
-            self.load_item(ref_root, ref_seq, ref_frames), rng))
+            self.load_item(ref_root, ref_seq, ref_frames), rng, thread_common_attr=False))
         out["ref_images"] = ref["images"]
         if "label" in ref:
             out["ref_labels"] = ref["label"]

@@ -22,15 +22,25 @@ item of two frames or more carries a ``_flow_cache`` payload from
 ``flow.cache.DatasetFlowCacheHook``, built in the loader's thread from
 the augmentor's record and canonical frames; the loader keeps it as a
 list of dicts, which ``TeacherFlowCache.attach`` consumes. Pinned
-inference items never carry one. Not ported (ROADMAP.md A.4): the JAX
-dataset's first-frame barrier for the threaded common attributes of a
-pinned sequence (the person crop of pose datasets).
+inference items never carry one.
+
+A pinned sequence whose full-data op shares attributes across its
+frames (the person crop of pose datasets: every frame takes frame 0's
+box) has a first-frame barrier, as in the JAX dataset: a later frame
+that a loader thread starts before frame 0 is done waits for it. Where
+the JAX dataset gives up after 30 s and crops the frame with a box of
+its own, the port raises: a frame 0 that failed or did not finish in
+``FIRST_FRAME_TIMEOUT_S`` is an error, not a different crop.
 """
 
 from __future__ import annotations
 
+import threading
+
 from imaginaire_tpu_torch.config import cfg_get
 from imaginaire_tpu_torch.data.base import BaseDataset
+
+FIRST_FRAME_TIMEOUT_S = 30.0
 
 
 class Dataset(BaseDataset):
@@ -86,6 +96,34 @@ class Dataset(BaseDataset):
                              "dataset")
         self.inference_sequence_idx = index % len(self.sequences)
         self.epoch_length = len(self.sequences[self.inference_sequence_idx][2])
+        self.clear_common_attr()
+        self._first_frame = {"done": threading.Event(), "failed": False}
+
+    def _load_pinned(self, root_idx, seq, stems, frame_idx, rng):
+        """Frame ``frame_idx`` of the pinned sequence, processed. Where its
+        frames share attributes, frame 0 releases the first-frame barrier
+        (failed or not) and a later frame waits for it, raising if frame 0
+        failed or did not finish in ``FIRST_FRAME_TIMEOUT_S``."""
+        barrier = self._first_frame if self.threads_common_attr else None
+        if barrier is not None and frame_idx > 0:
+            if not barrier["done"].wait(FIRST_FRAME_TIMEOUT_S):
+                raise RuntimeError(
+                    f"frame {frame_idx} of pinned sequence {self.inference_sequence_idx} "
+                    f"waited {FIRST_FRAME_TIMEOUT_S} s for frame 0, whose crop box every "
+                    "frame of the sequence takes")
+            if barrier["failed"]:
+                raise RuntimeError(
+                    f"frame 0 of pinned sequence {self.inference_sequence_idx} failed; "
+                    f"frame {frame_idx} has no crop box to take")
+        ok = False
+        try:
+            out = self.process_item(self.load_item(root_idx, seq, [stems[frame_idx]]), rng)
+            ok = True
+        finally:
+            if barrier is not None and frame_idx == 0:
+                barrier["failed"] = not ok
+                barrier["done"].set()
+        return out
 
     def _rebuild(self):
         self.valid = [s for s in self.sequences
@@ -110,6 +148,7 @@ class Dataset(BaseDataset):
         if self.is_inference and self.inference_sequence_idx is not None:
             root_idx, seq, stems = self.sequences[self.inference_sequence_idx]
             frames = [stems[index % len(stems)]]
+            out = self._load_pinned(root_idx, seq, stems, index % len(stems), rng)
         else:
             if self.is_inference:
                 required, time_step = self.sequence_length, 1
@@ -125,7 +164,7 @@ class Dataset(BaseDataset):
             if len(frames) != self.sequence_length:
                 raise RuntimeError(f"sampled {len(frames)} frames of {seq}, "
                                    f"not {self.sequence_length}")
-        out = self.process_item(self.load_item(root_idx, seq, frames), rng)
+            out = self.process_item(self.load_item(root_idx, seq, frames), rng)
         out = self.concat_labels(out)
         if self._flow_hook is not None and len(frames) >= 2:
             out = self._flow_hook.attach_item(

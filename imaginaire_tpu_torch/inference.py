@@ -9,8 +9,11 @@ the verified path (the logdir's pointer with fallback, or an explicit
 newest verifiable checkpoint beside it loads instead), and generates
 through ``trainer.test``: one PNG a test item for the image families,
 and for vid2vid every frame of every sequence of the test split, rolled
-out frame by frame (``<output_dir>/seq<idx>/<t>.png``). Routing through
-the serving engine is not in the port yet (ROADMAP.md A.5).
+out frame by frame (``<output_dir>/seq<idx>/<t>.png``). A config whose
+``inference_args.finetune`` is set (fs-vid2vid) gets a trainer built for
+training, whose D and losses the finetune steps, loaded from the same
+checkpoint. Routing through the serving engine is not in the port yet
+(ROADMAP.md A.5).
 """
 
 from __future__ import annotations
@@ -47,14 +50,15 @@ def main(argv=None):
     cfg.logdir = logdir
 
     test_loader = get_test_dataloader(cfg)
-    trainer = resolve(cfg.trainer.type, "Trainer")(cfg, device=args.device)
+    inference_args = cfg_get(cfg, "inference_args", None)
+    finetune = bool(cfg_get(inference_args or {}, "finetune", False))
+    trainer = resolve(cfg.trainer.type, "Trainer")(cfg, device=args.device, train=finetune)
     trainer.init_state(seed=args.seed)
     loaded = trainer.load_checkpoint(args.checkpoint or None,
                                      fallback=bool(args.checkpoint))
     if not loaded:
         print("WARNING: no checkpoint found; running with fresh weights.")
     trainer.current_epoch = trainer.current_iteration = -1
-    inference_args = cfg_get(cfg, "inference_args", None)
     trainer.test(test_loader, args.output_dir,
                  dict(inference_args) if inference_args else None)
     print(f"Done with inference. Outputs in {args.output_dir}")

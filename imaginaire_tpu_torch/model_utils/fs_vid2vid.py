@@ -3,8 +3,10 @@
 fs-vid2vid run).
 
 Frame buffers are (B, T, C, H, W), time at dim 1, NCHW frames. The face
-crop (``crop_face_from_data``) is a data op on the host: numpy frames,
-channel last.
+and person crops (``crop_face_from_data``, ``crop_person_from_data``),
+the bystander removal and the DensePose preprocessing are host ops on
+numpy frames, channel last; ``extract_valid_pose_labels``, ``roll`` and
+``random_roll`` act on the device's NCHW tensors.
 """
 
 from __future__ import annotations
@@ -134,6 +136,218 @@ def crop_and_resize(arrays, crop_coords, size, method="bilinear"):
             frames.append(resize(np.ascontiguousarray(f[y0:y1, x0:x1]), size, interp))
         out.append(np.stack(frames))
     return out
+
+
+def _target_person(openpose, ids):
+    """(H, W) bool mask of the DensePose instance whose id (``ids``, (H,
+    W) int) lies most often under the OpenPose strokes (the first 3
+    channels of ``openpose`` above 0), or None where there is no stroke."""
+    under = ids[np.any(openpose[..., :3] > 0, axis=-1)]
+    return ids == np.bincount(under).argmax() if under.size else None
+
+
+def remove_other_ppl(labels, densemasks):
+    """Keep only the target person of (T, H, W, C) pose labels (DensePose
+    in channels 0:3, OpenPose from 3): each frame is masked to the
+    DensePose instance id (channel 0 of ``densemasks``, in [0, 1] of
+    255) that lies most often under the OpenPose strokes; a frame with
+    no stroke is kept whole."""
+    labels = np.array(labels, copy=True)
+    masks = (np.asarray(densemasks)[..., 0] * 255).astype(np.int64)
+    for idx in range(labels.shape[0]):
+        keep = _target_person(labels[idx][..., 3:], masks[idx])
+        if keep is not None:
+            labels[idx] = labels[idx] * keep[..., None]
+    return labels
+
+
+def get_person_bbox_for_data(pose_map, orig_img_size, scale=1.5,
+                             crop_aspect_ratio=1.0, offset=None):
+    """Pixel box [y0, y1, x0, x1] around the body of (T, H, W, C) pose
+    maps (the support of channels 0:3 over all frames): its height the
+    body's times ``scale``, at least half the frame's and at most the
+    frame's, widened to the body's width times ``scale`` at the crop's
+    aspect ratio, moved by ``offset`` (of the half sizes), its centre
+    kept inside the frame. The width-driven box can overrun the frame:
+    the caller clamps it. Without a body, a box of the frame's height in
+    the middle."""
+    h, w = orig_img_size
+    pose_map = np.asarray(pose_map)
+    ys, xs = np.nonzero(np.any(pose_map[..., :3] > 0, axis=(0, -1)))
+    if ys.size == 0:
+        bw = int(h * crop_aspect_ratio // 2)
+        return [0, h, w // 2 - bw, w // 2 + bw]
+    y_min, y_max = int(ys.min()), int(ys.max())
+    x_min, x_max = int(xs.min()), int(xs.max())
+    y_cen, x_cen = (y_min + y_max) // 2, (x_min + x_max) // 2
+    y_len, x_len = y_max - y_min, x_max - x_min
+    bh = int(min(h, max(h // 2, y_len * scale))) // 2
+    bh = max(bh, int(x_len * scale / crop_aspect_ratio) // 2)
+    bw = int(bh * crop_aspect_ratio)
+    if offset is not None:
+        x_cen += int(offset[0] * bw)
+        y_cen += int(offset[1] * bh)
+    x_cen = max(bw, min(w - bw, x_cen))
+    y_cen = max(bh, min(h - bh, y_cen))
+    return [y_cen - bh, y_cen + bh, x_cen - bw, x_cen + bw]
+
+
+def crop_person_from_data(cfg, is_inference, data, rng=None):
+    """The full-data op of the pose datasets: crop every frame of the
+    item's data types to the person's box and resize it to
+    ``cfg.output_h_w``, each type with its configured interpolator.
+
+    The box comes from the DensePose maps (``pose_maps-densepose``);
+    with ``human_instance_maps`` the bystanders are masked out of the
+    DensePose and rendered OpenPose frames first (``remove_other_ppl``),
+    and the instance maps leave the item. In training the box is
+    jittered: an offset of N(0, 0.05) of its half sizes along x then y,
+    then a scale of 1.5 + N(0, 0.05) within [1, 2], drawn from ``rng``
+    (the item's ``random.Random``) in the JAX package's order (which
+    draws from ``np.random``). The box is clamped to the frame before
+    use, and the keypoint stashes (``<type>_xy``) move with it. At
+    inference the box is read from ``data['common_attr']`` when the
+    dataset threads one in (a later frame of a pinned sequence reuses
+    its first frame's box) and left there for the next."""
+    from imaginaire_tpu_torch.config import cfg_get
+
+    dp_key = "pose_maps-densepose"
+    if dp_key not in data:
+        return data
+    dp = np.stack([np.asarray(f, np.float32) for f in data[dp_key]])
+    op_key = "pose_maps-openpose" if "pose_maps-openpose" in data else "poses-openpose"
+    rendered_op = None
+    if op_key in data and hasattr(data[op_key][0], "shape"):
+        rendered_op = np.stack([np.asarray(f, np.float32) for f in data[op_key]])
+    if "human_instance_maps" in data:
+        # remove_other_ppl of (DensePose, OpenPose) frame by frame, in
+        # place: the ids as that function reads them from the [0, 1] maps
+        inst = [np.asarray(f, np.float32)[..., 0] for f in data["human_instance_maps"]]
+        for t in range(len(dp)):
+            keep = (_target_person(rendered_op[t], ((inst[t] / 255.0) * 255).astype(np.int64))
+                    if rendered_op is not None else inst[t] > 0)
+            if keep is not None:
+                dp[t] *= keep[..., None]
+                if rendered_op is not None:
+                    rendered_op[t] *= keep[..., None]
+        if rendered_op is not None:
+            data[op_key] = list(rendered_op)
+        data[dp_key] = list(dp)
+
+    h, w = [int(v) for v in str(cfg_get(cfg, "output_h_w", "256,256")).split(",")]
+    img_size = dp.shape[1:3]
+    offset, scale = None, 1.5
+    if not is_inference:
+        if rng is None:
+            raise ValueError("a training person crop draws its jitter from the "
+                             "item's rng")
+        offset = np.clip(np.array([rng.gauss(0.0, 1.0), rng.gauss(0.0, 1.0)]) * 0.05, -1, 1)
+        scale = min(2, max(1, scale + rng.gauss(0.0, 1.0) * 0.05))
+    common = data.get("common_attr") or {}
+    if "crop_coords" in common:
+        crop_coords = common["crop_coords"]
+    else:
+        crop_coords = get_person_bbox_for_data(dp, img_size, scale, w / h, offset)
+    ih, iw = img_size
+    y0, y1, x0, x1 = crop_coords
+    y0, x0, y1, x1 = max(0, y0), max(0, x0), min(ih, y1), min(iw, x1)
+    crop_coords = [y0, y1, x0, x1]
+    interp_of = {}
+    for entry in cfg_get(cfg, "input_types", []) or []:
+        for name, props in dict(entry).items():
+            interp_of[name] = str(cfg_get(props, "interpolator", "BILINEAR") or "BILINEAR")
+    for t, frames in list(data.items()):
+        if t == "human_instance_maps" or t.endswith("_xy") or t == "common_attr":
+            continue
+        if not isinstance(frames, (list, tuple)) or not frames \
+                or not hasattr(frames[0], "shape") \
+                or np.asarray(frames[0]).shape[:2] != tuple(img_size):
+            continue
+        method = "nearest" if interp_of.get(t, "").upper() == "NEAREST" else "bilinear"
+        data[t] = list(crop_and_resize([frames], crop_coords, (h, w), method=method)[0])
+    sy, sx = h / max(y1 - y0, 1), w / max(x1 - x0, 1)
+    for t in list(data):
+        if t.endswith("_xy") and hasattr(data[t], "shape"):
+            pts = np.array(data[t], np.float32, copy=True)
+            if pts.shape[-1] >= 2:
+                pts[..., 0] = (pts[..., 0] - x0) * sx
+                pts[..., 1] = (pts[..., 1] - y0) * sy
+                data[t] = pts
+    data.pop("human_instance_maps", None)
+    if is_inference:
+        data.setdefault("common_attr", {})["crop_coords"] = crop_coords
+    return data
+
+
+# the dataset threads ``common_attr`` through a pinned sequence for this op
+crop_person_from_data.uses_common_attr = True
+
+
+def pre_process_densepose(pose_cfg, pose_map, is_infer=False, rng=None):
+    """DensePose preprocessing of (..., H, W, C) float pose labels in
+    [0, 1] (DensePose's part index / 255 in channel 2), as host numpy:
+    in training each of the 24 parts is dropped (channels 0:3 zeroed
+    where it lies) with ``random_drop_prob``, one draw of ``rng`` a part
+    in order (the JAX package draws from the global ``random``), then the
+    part channel is scaled to [0, 1] over 24 parts and every channel to
+    [-1, 1]."""
+    from imaginaire_tpu_torch.config import cfg_get
+
+    pose_map = np.array(pose_map, np.float32, copy=True)
+    part_map = pose_map[..., 2] * 255.0
+    random_drop_prob = 0 if is_infer else cfg_get(pose_cfg, "random_drop_prob", 0)
+    if random_drop_prob > 0:
+        if rng is None:
+            raise ValueError("DensePose part drops draw from a given rng")
+        for part_id in range(1, 25):
+            if rng.random() < random_drop_prob:
+                mask = np.abs(part_map - part_id) < 0.1
+                pose_map[..., :3][mask] = 0.0
+    pose_map[..., 2] = pose_map[..., 2] * (255.0 / 24.0)
+    return pose_map * 2.0 - 1.0
+
+
+def extract_valid_pose_labels(pose_map, pose_type, remove_face_labels, do_remove=True):
+    """The pose label channels the generator reads, of an NCHW label
+    (B, C, H, W) or (B, T, C, H, W) (or a list of such, or None):
+    DensePose in channels 0:3, OpenPose after; ``pose_type`` 'open' keeps
+    OpenPose alone; ``remove_face_labels`` (with ``do_remove``) sets the
+    DensePose channels to -1 where the preprocessed part channel lies in
+    (0.4, 0.6)."""
+    if pose_map is None:
+        return pose_map
+    if isinstance(pose_map, list):
+        return [extract_valid_pose_labels(p, pose_type, remove_face_labels, do_remove)
+                for p in pose_map]
+    c = pose_map.dim() - 3
+    if pose_type == "open":
+        return pose_map.narrow(c, 3, pose_map.shape[c] - 3)
+    if remove_face_labels and do_remove:
+        densepose = pose_map.narrow(c, 0, 3)
+        part = densepose.narrow(c, 2, 1)
+        face = (part > 0.4) & (part < 0.6)
+        densepose = torch.where(face, torch.full_like(densepose, -1.0), densepose)
+        return torch.cat([densepose, pose_map.narrow(c, 3, pose_map.shape[c] - 3)], dim=c)
+    return pose_map
+
+
+def roll(t, ny, nx, flip=False):
+    """Roll (..., C, H, W) by (ny, nx) pixels, then flip it horizontally
+    when ``flip``."""
+    t = torch.roll(t, (ny, nx), dims=(-2, -1))
+    return t.flip(-1) if flip else t
+
+
+def random_roll(tensors, rng):
+    """Roll every tensor of the list (..., C, H, W) by one draw of
+    ``rng`` (a ``numpy.random.RandomState``; the JAX package draws from
+    ``np.random``): a shift of up to H / 16 (W / 16) pixels from either
+    edge, y then x, then a horizontal flip at even odds."""
+    h, w = tensors[0].shape[-2:]
+    ny = int(rng.choice([rng.randint(max(h // 16, 1)), h - rng.randint(max(h // 16, 1))]))
+    nx = int(rng.choice([rng.randint(max(w // 16, 1)), w - rng.randint(max(w // 16, 1))]))
+    flip = rng.rand() > 0.5
+    return [roll(t, ny, nx, flip) for t in tensors]
 
 
 def crop_face_from_data(cfg, is_inference, data, rng=None):

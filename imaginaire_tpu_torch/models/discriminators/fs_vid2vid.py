@@ -15,9 +15,10 @@ condition also holds the reference label and image the generator picked
 fake frame, cut by the config's ``crop_func`` (``module::function``,
 resolved to the port's twin: ``model_utils/fs_vid2vid.py``) from the
 current frame's pose label; a crop that comes with a validity mask (the
-hands) passes it on as ``valid``. A few-shot D's region crops would also
-take the reference frame's crop, which the port refuses (ROADMAP.md).
-NCHW; frame stacks are (B, T, C, H, W), reference stacks (B, K, C, H,
+hands) passes it on as ``valid``. A few-shot D's region D sees the real
+or fake crop beside the crop of the reference image the generator picked,
+cut at the same box (the current frame's label's), so its input has 6
+channels. NCHW; frame stacks are (B, T, C, H, W), reference stacks (B, K, C, H,
 W).
 """
 
@@ -60,11 +61,6 @@ class Discriminator(nn.Module):
         self.data_cfg = data_cfg
         self.use_few_shot = "few_shot" in str(cfg_get(data_cfg, "type", ""))
         add_cfg = as_attrdict(cfg_get(dis_cfg, "additional_discriminators", None) or {})
-        if add_cfg and self.use_few_shot:
-            raise NotImplementedError(
-                "dis.additional_discriminators of a few-shot D (the reference "
-                "frame's region crop in the condition) are not in the port yet "
-                "(ROADMAP.md)")
         self.add_dis_names = sorted(add_cfg.keys())
         self.add_crop_funcs = [
             resolve_function(*str(cfg_get(add_cfg[n], "crop_func", "")).split("::"))
@@ -81,8 +77,10 @@ class Discriminator(nn.Module):
         for s in range(self.num_scales):
             self.add_module(f"net_DT{s}", _make_patch_dis(
                 temporal_cfg, self.num_frames_D * num_img))
-        for name in self.add_dis_names:  # region crops: the frame's last 3 channels
-            self.add_module(f"net_D_{name}", _make_patch_dis(add_cfg[name], 3))
+        # region crops: the frame's last 3 channels, and the reference's
+        for name in self.add_dis_names:
+            self.add_module(f"net_D_{name}", _make_patch_dis(
+                add_cfg[name], 6 if self.use_few_shot else 3))
 
     @staticmethod
     def _discriminate_image(net_D, real_A, real_B, fake_B):
@@ -107,8 +105,9 @@ class Discriminator(nn.Module):
             label = label[:, -1]
         if self.use_few_shot:
             ref_idx = net_G_output.get("ref_idx")
-            label = torch.cat([label, pick_image(data["ref_labels"], ref_idx),
-                               pick_image(data["ref_images"], ref_idx)], dim=1)
+            ref_image = pick_image(data["ref_images"], ref_idx)
+            label = torch.cat([label, pick_image(data["ref_labels"], ref_idx), ref_image],
+                              dim=1)
         fake_image = net_G_output["fake_images"]
         output = {"indv": self._discriminate_image(self.net_D, label,
                                                    real_image, fake_image)}
@@ -119,6 +118,12 @@ class Discriminator(nn.Module):
             valid = None
             if isinstance(real_crop, tuple):
                 (real_crop, valid), (fake_crop, _) = real_crop, fake_crop
+            if self.use_few_shot:
+                ref_crop = crop_fn(self.data_cfg, ref_image, pose_label)
+                if isinstance(ref_crop, tuple):
+                    ref_crop = ref_crop[0]
+                real_crop = torch.cat([real_crop, ref_crop], dim=1)
+                fake_crop = torch.cat([fake_crop, ref_crop], dim=1)
             output[name] = self._discriminate_image(
                 getattr(self, f"net_D_{name}"), None, real_crop, fake_crop)
             if valid is not None:

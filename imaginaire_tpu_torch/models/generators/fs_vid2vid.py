@@ -25,6 +25,12 @@ generator, the reference is re-encoded and every hyper weight predicted
 at every frame, the norm weights that a ``spatially_adaptive`` norm
 ignores included (their layers still take spectral-norm steps). NCHW;
 reference stacks are (B, K, C, H, W), histories (B, T, C, H, W).
+
+On pose data (``data.for_pose_dataset``) the labels are cut to the
+channels the networks read first (``extract_valid_pose_labels``):
+OpenPose alone under ``pose_type: open``, else DensePose and OpenPose,
+the DensePose face parts of the frame's and the previous labels set to
+-1 under ``remove_face_labels`` (the reference labels keep theirs).
 """
 
 from __future__ import annotations
@@ -35,7 +41,12 @@ from torch import nn
 from imaginaire_tpu_torch.config import as_attrdict, cfg_get
 from imaginaire_tpu_torch.layers import Conv2dBlock, HyperRes2dBlock, LinearBlock, Res2dBlock
 from imaginaire_tpu_torch.layers.activation_norm import default_fused_modulation
-from imaginaire_tpu_torch.model_utils.fs_vid2vid import fold_time, pick_image, resample
+from imaginaire_tpu_torch.model_utils.fs_vid2vid import (
+    extract_valid_pose_labels,
+    fold_time,
+    pick_image,
+    resample,
+)
 from imaginaire_tpu_torch.models.generators.embedders import LabelEmbedder
 from imaginaire_tpu_torch.optim.remat import call_block, resolve_policy
 from imaginaire_tpu_torch.utils.data import (
@@ -200,7 +211,11 @@ class WeightGenerator(nn.Module):
             cfg_get(gen_cfg, "activation_norm_params", {}) or {}, "kernel_size", 1)
         self.conv_kernel_size = cfg_get(gen_cfg, "kernel_size", 3)
 
-        self.num_input_channels = nl = get_paired_input_label_channel_number(data_cfg)
+        nl = get_paired_input_label_channel_number(data_cfg)
+        pose_cfg = as_attrdict(cfg_get(data_cfg, "for_pose_dataset", None) or {})
+        if cfg_get(pose_cfg, "pose_type", "both") == "open":
+            nl -= 3  # the DensePose channels are dropped before the networks
+        self.num_input_channels = nl
         ni = get_paired_input_image_channel_number(data_cfg)
         ks = cfg_get(hyper_cfg, "kernel_size", 3)
         wn = cfg_get(hyper_cfg, "weight_norm_type", "spectral")
@@ -383,10 +398,11 @@ class Generator(nn.Module):
         super().__init__()
         gen_cfg = as_attrdict(gen_cfg)
         data_cfg = as_attrdict(data_cfg)
-        if cfg_get(data_cfg, "for_pose_dataset", None) is not None:
-            raise NotImplementedError(
-                "fs-vid2vid on pose datasets (DensePose / OpenPose labels) is "
-                "not in the port yet (ROADMAP.md)")
+        pose_cfg = cfg_get(data_cfg, "for_pose_dataset", None)
+        self.is_pose_data = pose_cfg is not None
+        self.pose_type = cfg_get(pose_cfg, "pose_type", "both") if self.is_pose_data else "both"
+        self.remove_face_labels = (cfg_get(pose_cfg, "remove_face_labels", False)
+                                   if self.is_pose_data else False)
         self.num_frames_G = cfg_get(data_cfg, "num_frames_G", 2)
         flow_cfg = as_attrdict(cfg_get(gen_cfg, "flow", {}) or {})
         if cfg_get(flow_cfg, "generate_raw_output", False):
@@ -493,6 +509,11 @@ class Generator(nn.Module):
         label = data["label"]
         ref_labels, ref_images = data.get("ref_labels"), data["ref_images"]
         prev_labels, prev_images = data.get("prev_labels"), data.get("prev_images")
+        if self.is_pose_data:
+            label, prev_labels = extract_valid_pose_labels(
+                [label, prev_labels], self.pose_type, self.remove_face_labels)
+            ref_labels = extract_valid_pose_labels(
+                ref_labels, self.pose_type, self.remove_face_labels, do_remove=False)
         x, encoded_label, conv_weights, norm_weights, _, atn_vis, ref_idx = \
             self.weight_generator(ref_images, ref_labels, label)
         flow, occ_mask, img_warp, cond_inputs = self.flow_generation(

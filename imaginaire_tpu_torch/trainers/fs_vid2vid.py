@@ -12,22 +12,41 @@ package): ``Flow_L1`` is computed only from a cached ``flow_gt`` /
 flow. A configured ``flow_network`` is still built, as the JAX trainer
 builds it.
 
+The G step also takes the region discriminators' losses
+(``GAN_<name>``, ``FeatureMatching_<name>``) of pose data, whose
+few-shot region Ds see the reference frame's crop beside the frame's.
+
 Inference pins the driving sequence (``inference_args.driving_seq_index``,
 else every sequence) and its reference (``few_shot_seq_index``,
-``few_shot_frame_index``). Not in the port yet (ROADMAP.md): the
-few-shot finetune (``finetune``, ``inference_args.finetune``) and the
-video FID/KID/PRDC of this family: ``evaluate`` raises, and a training
-snapshot skips FID with a message.
+``few_shot_frame_index``). With ``inference_args.finetune`` the model is
+first adapted to the reference frames of the test loader's first batch
+(``finetune``): ``finetune_iter`` one-frame D+G iterations, each on one
+reference frame, rolled and flipped, as the target, G's update limited to
+the parameters under ``finetune_param_prefixes`` (default
+``weight_generator``, ``conv_img``, ``up``), both optimizers fresh at
+the config's learning rates. Its draws come from a ``RandomState`` of
+the run's seed (the JAX package draws from ``np.random``). The trainer
+must be built for training (``train=True``; the inference entry does so
+when the config asks for the finetune), since the finetune steps D and
+G. Not in the port yet (ROADMAP.md): the video FID/KID/PRDC of this
+family: ``evaluate`` raises, and a training snapshot skips FID with a
+message.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from imaginaire_tpu_torch.bridge import flax_path
+from imaginaire_tpu_torch.config import cfg_get
 from imaginaire_tpu_torch.losses.flow import masked_l1_loss
-from imaginaire_tpu_torch.model_utils.fs_vid2vid import concat_frames
+from imaginaire_tpu_torch.model_utils.fs_vid2vid import concat_frames, random_roll
+from imaginaire_tpu_torch.optim.optimizers import get_optimizer_for_params
 from imaginaire_tpu_torch.trainers.vid2vid import Trainer as Vid2VidTrainer
 from imaginaire_tpu_torch.utils.misc import numeric_only
+
+FINETUNE_PREFIXES = ("weight_generator", "conv_img", "up")
 
 _NO_FID = ("the video FID/KID/PRDC of fs-vid2vid are not in the port yet "
            "(ROADMAP.md)")
@@ -71,18 +90,62 @@ class Trainer(Vid2VidTrainer):
             if f"temporal_{s}" in d_out:
                 losses[f"GAN_T{s}"], losses[f"FeatureMatching_T{s}"] = \
                     self._gan_fm_losses(d_out[f"temporal_{s}"], dis_update=False)
-        return losses, out
+        return self._region_d_losses(d_out, losses, dis_update=False), out
 
     # ------------------------------------------------------------ inference
 
+    def finetune_mask(self, prefixes=FINETUNE_PREFIXES):
+        """{G parameter name: trainable in the finetune}: a parameter
+        trains when a segment of its JAX path (the port names its modules
+        as the JAX package does: ``bridge.flax_path``) starts with one of
+        ``prefixes``, as the JAX finetune's mask reads the path."""
+        return {name: any(seg.startswith(pref) for seg in flax_path(name)
+                          for pref in prefixes)
+                for name, _ in self.net_G.named_parameters()}
+
     def finetune(self, data, inference_args=None):
-        raise NotImplementedError(
-            "the few-shot finetune of fs-vid2vid is not in the port yet (ROADMAP.md)")
+        """Adapt the model to the reference frames of ``data`` (a batch
+        on the device, after ``start_of_iteration(.., -1)``): fresh
+        optimizers, G's over the masked parameters alone, then
+        ``finetune_iter`` D+G iterations, each a one-frame sequence whose
+        label and image are one reference frame, picked at random, rolled
+        and flipped (``random_roll``); the references stay as they are."""
+        if not self.train:
+            raise RuntimeError("the finetune steps D and G: build the trainer "
+                               "with train=True")
+        inference_args = dict(inference_args or {})
+        prefixes = tuple(cfg_get(inference_args, "finetune_param_prefixes", None)
+                         or FINETUNE_PREFIXES)
+        iterations = int(cfg_get(inference_args, "finetune_iter", 100))
+        mask = self.finetune_mask(prefixes)
+        self.opt_G = get_optimizer_for_params(
+            self.cfg.gen_opt, [p for n, p in self.net_G.named_parameters() if mask[n]])
+        self.opt_D = get_optimizer_for_params(self.cfg.dis_opt, self.net_D.parameters())
+        rng = np.random.RandomState(self.state["seed"])
+        ref_labels, ref_images = data["ref_labels"], data["ref_images"]
+        k = ref_images.shape[1]
+        for _ in range(iterations):
+            idx = int(rng.randint(k))
+            label, image = random_roll([ref_labels[:, idx], ref_images[:, idx]], rng)
+            self.gen_update(dict(data, label=label[:, None], images=image[:, None]))
+        self.has_finetuned = True
+
+    def _optimizers(self):
+        """Raises once the finetune replaced G's optimizer by one over a
+        subset of G's parameters: no checkpoint holds that state."""
+        if getattr(self, "has_finetuned", False):
+            raise RuntimeError("a finetuned trainer saves no checkpoint: its G "
+                               "optimizer covers the finetune's parameters alone")
+        return super()._optimizers()
 
     def test(self, data_loader, output_dir, inference_args=None):
+        """Optionally finetune on the first batch of ``data_loader`` (once),
+        then the vid2vid test loop."""
         inference_args = dict(inference_args or {})
-        if inference_args.pop("finetune", False):
-            self.finetune(None, inference_args)
+        if inference_args.pop("finetune", False) \
+                and not getattr(self, "has_finetuned", False):
+            first = self.start_of_iteration(next(iter(data_loader)), current_iteration=-1)
+            self.finetune(first, inference_args)
         inference_args.pop("finetune_iter", None)
         inference_args.pop("finetune_param_prefixes", None)
         return super().test(data_loader, output_dir, inference_args)

@@ -43,7 +43,16 @@ enter a step or a forward.
 Not ported: the whole-rollout scan (``trainer.rollout_scan`` raises) and
 the pipelined dispatch (``trainer.pipeline``, which the JAX package
 defines as bit-identical to the sequential loop: the port runs the
-sequential loop and says so once), and DensePose preprocessing (A.4).
+sequential loop and says so once).
+
+Pose datasets with DensePose labels are preprocessed on the host before
+each batch moves to the device (``_start_of_iteration``,
+``model_utils/fs_vid2vid.py:pre_process_densepose``): a training
+batch's labels lose each body part with ``random_drop_prob``, one draw a
+part for the whole batch, from a generator derived from the run's seed
+and the iteration (a resumed run draws what the unbroken one drew; the
+JAX package draws from the global ``random``); reference labels and the
+labels of inference (``current_iteration < 0``) lose none.
 
 Video inference is frame-recurrent: each frame conditions on the
 trainer's own previous outputs, which ``_generate_frame`` keeps in
@@ -61,6 +70,7 @@ from __future__ import annotations
 
 import logging
 import os
+import random
 
 import torch
 from torch.func import functional_call
@@ -82,6 +92,7 @@ from imaginaire_tpu_torch.losses.flow import FlowLoss, masked_l1_loss
 from imaginaire_tpu_torch.model_utils.fs_vid2vid import (
     concat_frames,
     get_fg_mask,
+    pre_process_densepose,
     skip_stride_span,
 )
 from imaginaire_tpu_torch.trainers.base import BaseTrainer
@@ -198,8 +209,8 @@ class Trainer(BaseTrainer):
         (``current_iteration >= 0``) get the teacher's ``flow_gt`` /
         ``conf_gt`` when the flow cache is on; a dataset's
         ``_flow_cache`` payload that no cache consumes is dropped. Pose
-        datasets need DensePose preprocessing, which is not in the port
-        yet."""
+        datasets with DensePose labels are preprocessed (see the module
+        doc)."""
         if self.flow_cache is not None and current_iteration >= 0:
             data = self.flow_cache.attach(dict(data))
         elif isinstance(data, dict) and "_flow_cache" in data:
@@ -208,9 +219,19 @@ class Trainer(BaseTrainer):
         pose_cfg = cfg_get(self.cfg.data, "for_pose_dataset", None)
         if pose_cfg is not None and "pose_maps-densepose" in (
                 cfg_get(self.cfg.data, "input_labels", []) or []):
-            raise NotImplementedError(
-                "DensePose preprocessing for pose datasets is not in the "
-                "port yet (ROADMAP.md)")
+            if torch.is_tensor(data["label"]):
+                raise NotImplementedError(
+                    "DensePose labels are preprocessed on the host batch (NHWC numpy); "
+                    "pose streams through the serving engine are not in the port yet "
+                    "(ROADMAP.md A.5)")
+            data = dict(data)
+            seed = self.state["seed"] if self.state is not None else 0
+            data["label"] = pre_process_densepose(
+                pose_cfg, data["label"], is_infer=current_iteration < 0,
+                rng=random.Random(f"{seed}/densepose/{current_iteration}"))
+            if "ref_labels" in data:
+                data["ref_labels"] = pre_process_densepose(pose_cfg, data["ref_labels"],
+                                                           is_infer=True)
         return data
 
     def _end_of_iteration(self, data, current_epoch, current_iteration):

@@ -35,7 +35,10 @@ composition (1e-4). fs-vid2vid: the hyper-SPADE generator through the
 modulation kernel's re-reading path against the plain composition (1e-4).
 vid2vid dancing: the face and hand crops at 512x512 and the region Ds
 on the card against the CPU (crops fp32 1e-5, bf16 one ulp of their
-magnitude; the D's outputs 1e-4 in relative L2).
+magnitude; the D's outputs 1e-4 in relative L2). fs-vid2vid
+YouTubeDancing: the few-shot face D with the reference frame's crop and
+the DensePose face box at 512x256 on the card against the CPU (the boxes
+exactly, the D's outputs 1e-4 in relative L2).
 """
 
 import re
@@ -921,6 +924,51 @@ def test_pose_region_crops_and_discriminator_on_the_card_match_the_cpu(cuda_devi
         got = dev_net({"label": label.to(cuda_device), "image": real.to(cuda_device)},
                       {"fake_images": fake.to(cuda_device)})
     assert set(got) == set(want) == {"indv", "face", "hand"}
+    for name in want:
+        for side in ("pred_real", "pred_fake"):
+            for g, w in zip(got[name][side]["outputs"], want[name][side]["outputs"]):
+                g = g.float().cpu()
+                assert float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w)) \
+                    <= 1e-4, (name, side)
+    assert (spade_mod.launches, rs.launches, corr.launches, cn.launches) == launches
+
+
+@pytest.mark.cuda
+def test_fewshot_face_discriminator_on_the_card_matches_the_cpu(cuda_device):
+    """The YouTubeDancing config's few-shot D at 512x256 (DensePose +
+    OpenPose labels: the face box from the part channel above 0.9, a face
+    the crop upsamples, one it antialiases; the face D fed the frame's
+    crop beside the reference image's crop at the same box) on the card
+    against the CPU: the face boxes exactly, every output of the image
+    and face Ds within 1e-4 in relative L2; no kernel launches."""
+    from imaginaire_tpu_torch.config import Config
+    from imaginaire_tpu_torch.model_utils import fs_vid2vid
+    from imaginaire_tpu_torch.models.discriminators.fs_vid2vid import Discriminator
+
+    cfg = Config(str(UNIT_CONFIG.parents[1] / "projects/fs_vid2vid/YouTubeDancing/bf16.yaml"))
+    gen = torch.Generator().manual_seed(13)
+    label = torch.rand(2, 6, 512, 256, generator=gen) * 2 - 1
+    label[:, 2] = -1
+    label[0, 2, 100:112, 120:134] = 23 / 12 - 1  # a small face (part 23)
+    label[1, 2, 40:300, 20:240] = 1.0  # a large one (part 24)
+    image, fake = (torch.tanh(torch.randn(2, 3, 512, 256, generator=gen)) for _ in range(2))
+    data = {"label": label, "image": image, "ref_labels": label.flip(-1)[:, None],
+            "ref_images": torch.tanh(torch.randn(2, 1, 3, 512, 256, generator=gen))}
+    want_box = fs_vid2vid.get_face_bbox_for_output(cfg.data, label)
+    got_box = fs_vid2vid.get_face_bbox_for_output(cfg.data, label.to(cuda_device))
+    assert torch.equal(got_box.cpu(), want_box)
+    assert want_box[0, 1] - want_box[0, 0] == 32 and want_box[1, 1] - want_box[1, 0] == 256
+    launches = (spade_mod.launches, rs.launches, corr.launches, cn.launches)
+    net = Discriminator(cfg.dis, cfg.data).eval()
+    init_weights(net, torch.Generator().manual_seed(14), "kaiming", 1.0)
+    dev_net = Discriminator(cfg.dis, cfg.data).to(cuda_device).eval()
+    dev_net.load_state_dict(net.state_dict())
+    assert net.net_D_face.d_0.layer0.conv.weight.shape[1] == 6
+    with torch.no_grad():
+        want = net(data, {"fake_images": fake})
+        got = dev_net({k: v.to(cuda_device) for k, v in data.items()},
+                      {"fake_images": fake.to(cuda_device)})
+    assert set(got) == set(want) == {"indv", "face"}
     for name in want:
         for side in ("pred_real", "pred_fake"):
             for g, w in zip(got[name][side]["outputs"], want[name][side]["outputs"]):

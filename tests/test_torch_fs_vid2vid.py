@@ -387,7 +387,9 @@ def test_generator_matches_jax(nets, norm, t):
 
 @pytest.mark.parametrize("what", ["finetune", "inference_finetune", "pose", "raw_output",
                                   "native", "evaluate"])
-def test_still_refused_branches_raise_naming_the_roadmap(what):
+def test_still_refused_branches_raise_naming_the_roadmap(what, tmp_path):
+    """The branches still refused raise naming the roadmap; the finetune
+    (alone and before ``test``) and the pose path, once refused, run."""
     _, tcfg = configs()
     if what == "native":
         from imaginaire_tpu_torch.registry import resolve
@@ -395,17 +397,44 @@ def test_still_refused_branches_raise_naming_the_roadmap(what):
         with pytest.raises(ModuleNotFoundError, match="ROADMAP"):
             resolve("imaginaire_tpu.data.paired_few_shot_videos_native", "Dataset")
         return
-    if what in ("pose", "raw_output"):
-        extra = ({"data": {"for_pose_dataset": {"pose_type": "both"}}} if what == "pose"
-                 else {"gen": {"flow": {"generate_raw_output": True}}})
+    if what == "raw_output":
+        extra = {"gen": {"flow": {"generate_raw_output": True}}}
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            configs(extra)[1] and Generator(configs(extra)[1].gen, configs(extra)[1].data)
+            Generator(configs(extra)[1].gen, configs(extra)[1].data)
         return
-    trainer = Trainer(tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "finetune":
-            trainer.finetune({})
-        elif what == "inference_finetune":
-            trainer.test([], "unused", {"finetune": True})
-        else:
-            trainer.write_metrics()
+    if what == "pose":
+        # pose labels: under 'open' the DensePose channels are cut first
+        _, pose = configs({"data": {"for_pose_dataset": {"pose_type": "open"}}})
+        net = Generator(pose.gen, pose.data).eval()
+        assert net.is_pose_data and net.num_input_channels == LABELS - 3
+        d = frames(60)
+        with torch.no_grad():
+            out = net({k: to_torch(v) for k, v in d.items() if k != "image"})
+        assert out["fake_images"].shape == (1, 3, HW, HW)
+        return
+    if what == "evaluate":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Trainer(tcfg, device="cpu").write_metrics()
+        return
+    with pytest.raises(RuntimeError, match="train=True"):
+        Trainer(tcfg, device="cpu").finetune({})
+    trainer = Trainer(tcfg, device="cpu", train=True)
+    trainer.init_state(seed=1)
+    before = {n: p.detach().clone() for n, p in trainer.net_G.named_parameters()}
+    if what == "finetune":
+        d = frames(61)
+        trainer.finetune({k: to_torch(d[k]) for k in ("ref_labels", "ref_images")},
+                         {"finetune_iter": 1})
+    else:
+        from imaginaire_tpu_torch.data.loader import DataLoader
+        from imaginaire_tpu_torch.data.paired_few_shot_videos import Dataset
+
+        loader = DataLoader(Dataset(tcfg, is_inference=True), 1, shuffle=False,
+                            drop_last=False)
+        trainer.test(loader, str(tmp_path), {"finetune": True, "finetune_iter": 1,
+                                             "driving_seq_index": 0})
+        assert len(list(tmp_path.rglob("*.png"))) == 3
+    mask = trainer.finetune_mask()
+    assert trainer.has_finetuned and trainer.opt_G.count == 1
+    assert all(torch.equal(p, before[n]) for n, p in trainer.net_G.named_parameters()
+               if not mask[n])

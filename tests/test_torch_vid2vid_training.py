@@ -596,52 +596,68 @@ def test_adam_state_of_both_networks_bridges(pair):
 # ----------------------------------------------------------- refusals
 
 
+# a DensePose label type in place of the seg maps
+DENSEPOSE = dict(for_pose_dataset=dict(), input_labels=["pose_maps-densepose"],
+                 input_types=[{"images": dict(ext="png", num_channels=3, normalize=True)},
+                              {"pose_maps-densepose": dict(ext="png", num_channels=3)}])
+
+
 @pytest.mark.parametrize("what", ["rollout_scan", "additional_discriminators",
                                   "few_shot", "warp_ref", "densepose", "inference"])
 def test_unported_branches_raise_naming_the_roadmap(what, tmp_path):
     if what == "inference":
-        # inference from disk is ported (tests/test_torch_vid2vid_eval.py);
-        # a pose dataset's still needs DensePose preprocessing
+        # inference from disk is ported (tests/test_torch_vid2vid_eval.py),
+        # and a pose dataset's frame gets its DensePose preprocessing
         trainer = Trainer(Config(CFG, overrides=CUT), device="cpu")
         trainer.test([], str(tmp_path / "out"))
         assert os.path.isdir(tmp_path / "out")
-        pose = Trainer(Config(CFG, overrides=dict(CUT, data=dict(
-            CUT["data"], for_pose_dataset=dict(), input_labels=["pose_maps-densepose"]))),
-            device="cpu")
-        frame = np.zeros((1, 1, 4, 4, 3), np.float32)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pose.test([{"label": frame, "images": frame}], str(tmp_path))
+        pose = Trainer(Config(CFG, overrides=dict(CUT, data=dict(CUT["data"], **DENSEPOSE))),
+                       device="cpu")
+        pose.init_state(seed=0)
+        seen = []
+        pose.net_G.register_forward_pre_hook(lambda m, a: seen.append(a[0]["label"]))
+        frame = np.zeros((1, 1, HW, HW, 3), np.float32)
+        pose.test([{"label": frame, "images": frame, "key": ["seq/0"]}], str(tmp_path))
+        assert os.path.isfile(tmp_path / "seq" / "0" / "0000.png")
+        assert seen and bool((seen[0] == -1).all())
         return
     if what == "warp_ref":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tflow.FlowLoss(None, warp_ref=True)
         return
     if what == "few_shot":
-        # fs-vid2vid is ported (tests/test_torch_fs_vid2vid.py); its few-shot
-        # finetune before inference is not
+        # fs-vid2vid and its few-shot finetune before inference are ported
+        # (tests/test_torch_fs_vid2vid.py, tests/test_torch_pose_fewshot_training.py):
+        # a test batch finetunes the model once, then its frame is written
         from imaginaire_tpu_torch.trainers.fs_vid2vid import Trainer as FsTrainer
 
-        fs = FsTrainer(Config("configs/unit_test/fs_vid2vid.yaml"), device="cpu")
-        with pytest.raises(NotImplementedError, match="finetune.*ROADMAP"):
-            fs.test([], str(tmp_path / "out"), {"finetune": True})
+        fs = FsTrainer(Config("configs/unit_test/fs_vid2vid.yaml"), device="cpu", train=True)
+        fs.init_state(seed=0)
+        rng = np.random.RandomState(0)
+        one_hot = np.eye(12, dtype=np.float32)[rng.randint(0, 12, (2, 1, 1, 64, 64))]
+        image = np.tanh(rng.randn(2, 1, 1, 64, 64, 3)).astype(np.float32)
+        batch = {"label": one_hot[0], "images": image[0], "ref_labels": one_hot[1],
+                 "ref_images": image[1], "key": ["seq/0"]}
+        fs.test([batch], str(tmp_path / "out"), {"finetune": True, "finetune_iter": 1})
+        assert fs.has_finetuned and fs.opt_G.count == fs.opt_D.count == 1
+        assert os.path.isfile(tmp_path / "out" / "seq" / "0" / "0000.png")
         return
     if what == "additional_discriminators":
-        # the region Ds are ported (tests/test_torch_pose.py); a few-shot
-        # D's reference-frame crop beside them is not
-        from imaginaire_tpu_torch.models.discriminators.fs_vid2vid import Discriminator
-
+        # the region Ds are ported (tests/test_torch_pose.py), and a few-shot
+        # D's region D sees the reference frame's crop beside the frame's
         fs = Config("configs/unit_test/fs_vid2vid.yaml")
         fs.dis.additional_discriminators = Config(
             "configs/unit_test/vid2vid_pose.yaml").dis.additional_discriminators
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Discriminator(fs.dis, fs.data)
+        net = Discriminator(fs.dis, fs.data)
+        assert net.add_dis_names == ["face", "hand"]
+        assert net.net_D_face.d_0.layer0.conv.weight.shape[1] == 6
+        assert net.net_D_hand.d_0.layer0.conv.weight.shape[1] == 6
         return
     if what == "densepose":
-        trainer = Trainer(Config(CFG, overrides=dict(CUT, data=dict(
-            CUT["data"], for_pose_dataset=dict(), input_labels=["pose_maps-densepose"]))),
-            device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trainer._start_of_iteration({"label": np.zeros((1, 4, 4, 3))}, 0)
+        trainer = Trainer(Config(CFG, overrides=dict(CUT, data=dict(CUT["data"], **DENSEPOSE))),
+                          device="cpu")
+        out = trainer._start_of_iteration({"label": np.zeros((1, 4, 4, 3))}, 0)
+        np.testing.assert_array_equal(out["label"], -np.ones((1, 4, 4, 3)))
         return
     overrides = {
         "rollout_scan": dict(CUT, trainer=dict(CUT["trainer"], rollout_scan=True)),
